@@ -1,0 +1,1 @@
+"""kernels layer of meshflow_tpu_torch."""

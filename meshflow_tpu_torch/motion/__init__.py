@@ -1,0 +1,1 @@
+"""motion layer of meshflow_tpu_torch."""

@@ -1,0 +1,1 @@
+"""render layer of meshflow_tpu_torch."""

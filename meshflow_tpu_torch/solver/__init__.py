@@ -1,0 +1,1 @@
+"""solver layer of meshflow_tpu_torch."""

@@ -1,0 +1,1 @@
+"""utils layer of meshflow_tpu_torch."""
