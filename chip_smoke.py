@@ -14,21 +14,48 @@ From the root of a checkout, on a machine with one CUDA card:
    64-frame 640x360 block with a 16x16 mesh (the main path's launch),
    and on single frames with a heavy warp and at 1920x1080 with a 64x64
    mesh;
-5. the main path: ``MeshFlowStabilizer(device="cuda")._stabilize_frames``
+5. kernel C (LK level, staged footprint): against the plain version and
+   bit for bit against kernel A, at the 640x360 tiles and at 1080p
+   track_downscale=1 tiles (16 of 270x480, 4 levels, shifts to +-20 px),
+   with the warps per SM of both kernels;
+6. the main path: ``MeshFlowStabilizer(device="cuda")._stabilize_frames``
    on a synthetic 300-frame 640x360 clip (seeded texture, smooth pan and
    per-frame jitter), cold then warm, with every kernel's launch count;
-6. the same path on a small clip on the card and on the CPU (plain
+7. the 1080p path: a 300-frame 1920x1080 clip at the automatic track
+   geometry (d=3) with MESHFLOW_LK_FETCH=band, cold then warm, a third
+   pass with its stages timed, kernel C's launch count;
+8. the 1080p track_downscale=1 control beside d=3 on the clip's first 64
+   frames: wall time and the three metrics of each;
+9. online mode: ``OnlineMeshFlowStabilizer(device="cuda").process`` over
+   a 120-frame 640x360 clip, per-frame latency, launch counts, and a
+   stabilized path smoother than the raw one;
+10. the main path on a small clip on the card and on the CPU (plain
    versions), whose outputs must agree.
 
-Prints one JSON line of the kernels' launches, errors and times, then the
-last line ``{"ok": true, "device": {...}}``.  Any failed check or error
-exits non-zero before that line.  Without a CUDA device, or without the
+Each kernel's bound is the larger of its operations over the H100's
+float32 rate and its bytes over its memory rate; for the LK kernels the
+plain version counts the iterations the inputs need.  Prints one JSON
+line of the kernels' launches, errors, times and bounds, then the last
+line ``{"ok": true, "device": {...}}``.  Any failed check or error exits
+non-zero before that line.  Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --compare DIR
+
+times another checkout of the repo (DIR, for example an earlier commit
+unpacked with ``git archive``) against this one on the same card: kernel
+A on the inputs of step 3 and the 640x360 main path (cold, then three
+warm passes), each tree in a process of its own, in the order DIR, this,
+this, DIR.  It checks that both trees give the same bytes and prints the
+times.
 """
 
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -62,6 +89,35 @@ def median_ms(fn, reps: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
+class fetch_route:
+    """MESHFLOW_LK_FETCH set to `route` inside the block only."""
+
+    def __init__(self, route):
+        self.route = route
+
+    def __enter__(self):
+        os.environ["MESHFLOW_LK_FETCH"] = self.route
+
+    def __exit__(self, *exc):
+        os.environ.pop("MESHFLOW_LK_FETCH", None)
+
+
+def reset_launches():
+    from meshflow_tpu_torch.kernels import bmap_cuda, lk_band_cuda, lk_cuda
+
+    lk_cuda.lk_level.launches = 0
+    lk_band_cuda.lk_level_band.launches = 0
+    bmap_cuda.backward_map.launches = 0
+
+
+def read_launches():
+    from meshflow_tpu_torch.kernels import bmap_cuda, lk_band_cuda, lk_cuda
+
+    return {"lk_level": lk_cuda.lk_level.launches,
+            "lk_band": lk_band_cuda.lk_level_band.launches,
+            "backward_map": bmap_cuda.backward_map.launches}
+
+
 def blurred_noise(rng, shape, passes: int = 2):
     """Seeded uint8 texture: integer noise smoothed by [1 2 1]/4 passes."""
     import numpy as np
@@ -73,23 +129,79 @@ def blurred_noise(rng, shape, passes: int = 2):
     return base
 
 
-def phase_kernel_a(device):
-    """LK kernel vs plain LK on the card at the slice's shapes."""
+# Published H100 SXM peaks (NVIDIA data sheet): float32 outside the
+# tensor cores, and HBM3 bandwidth.  A kernel's bound is the larger of its
+# operations over the first and its bytes over the second.
+H100_F32_FLOPS = 67e12
+H100_HBM_BYTES = 3.35e12
+
+# Float operations the LK function needs (not what a kernel happens to
+# repeat).  Setting up the frozen prev window: one Scharr pair (18) at
+# each of the (WIN+1)^2 support points per channel, then per window texel
+# an image bilinear (9), two gradient bilinears (18) and three products
+# and sums (6).  One iteration per window texel: a bilinear (9), a
+# difference (1) and two products and sums (4).
+LK_SCHARR_OPS = 18
+LK_SETUP_OPS = 33
+LK_ITER_OPS = 14
+
+
+def bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_ops, t_bytes = ops / H100_F32_FLOPS, nbytes / H100_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def lk_bound(track, planes, channels):
+    """Bound of one coarse-to-fine track: the plain version counts the
+    steps these inputs need, level by level; the planes are read once, the
+    slots' inputs and outputs once per level."""
+    import torch
+
+    from meshflow_tpu_torch.kernels.lk import WIN, lk_level_plain
+
+    stats = {"setups": 0, "iters": 0, "slot_bytes": 0}
+
+    def counting(*args, **kwargs):
+        corner, status, iters = lk_level_plain(*args, **kwargs, return_iters=True)
+        valid = args[4]
+        stats["setups"] += int(valid.sum())
+        stats["iters"] += int(iters.sum())
+        stats["slot_bytes"] += valid.numel() * (2 * 8 + 2 + 9)
+        return corner, status
+
+    track(counting)
+    torch.cuda.synchronize()
+    setup = channels * (LK_SCHARR_OPS * (WIN + 1) ** 2 + LK_SETUP_OPS * WIN * WIN)
+    ops = stats["setups"] * setup + stats["iters"] * channels * WIN * WIN * LK_ITER_OPS
+    nbytes = sum(p.numel() for p in planes) + stats["slot_bytes"]
+    ms, by = bound(ops, nbytes)
+    return ms, by, stats
+
+
+def lk_case(device, pairs, th, tw, max_level, max_shift, seed):
+    """Seeded textured tiles with known integer shifts: 16 tiles, C=3,
+    512 slots; returns (planes, dims, pts, valid, shifts).  The canvas and
+    its margin are those of kernel A's first check, so that check's inputs
+    stay the same."""
     import numpy as np
     import torch
 
-    from meshflow_tpu_torch.kernels import lk_cuda
     from meshflow_tpu_torch.kernels.lk import reflect_pad_level
     from meshflow_tpu_torch.kernels.pyramid import build_pyramid, pyramid_shapes
 
-    rng = np.random.default_rng(SEED)
-    pairs, s, c, k, th, tw, max_level = 8, 16, 3, 512, 90, 160, 2
+    rng = np.random.default_rng(seed)
+    s, c, k = 16, 3, 512
+    margin = 30  # a tile starts up to max_shift + 3 px either side of it
+    check(max_shift + 3 <= margin, f"shift {max_shift} leaves the canvas")
     base = blurred_noise(rng, (th + 80, tw + 80, c))
-    shifts = [(0, 0)] + [tuple(rng.integers(-6, 7, 2)) for _ in range(pairs)]
+    shifts = [(0, 0)] + [
+        tuple(rng.integers(-max_shift, max_shift + 1, 2)) for _ in range(pairs)
+    ]
     tiles = np.zeros((pairs + 1, s, c, th, tw), np.float32)
     for t, (dy, dx) in enumerate(shifts):
         for si in range(s):
-            oy, ox = 30 + dy + (si % 4), 30 + dx - (si // 4)
+            oy, ox = margin + dy + (si % 4), margin + dx - (si // 4)
             tiles[t, si] = base[oy : oy + th, ox : ox + tw].transpose(2, 0, 1)
     tiles = torch.from_numpy(np.round(tiles)).to(device)
     planes = tuple(
@@ -103,13 +215,15 @@ def phase_kernel_a(device):
     ).astype(np.float32)
     pts = torch.from_numpy(pts).to(device)
     valid = torch.from_numpy(rng.random((pairs + 1, s, k)) < 0.9).to(device)
+    return planes, dims, pts, valid, shifts
 
-    def run(level_fn):
-        return lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=level_fn)
 
-    kp, kst = run(lk_cuda.lk_level)
-    pp, pst = run(lk_cuda.lk_level_plain)
-    torch.cuda.synchronize()
+def lk_gates(name, kp, kst, pp, pst, pts, valid, shifts):
+    """A kernel's track against the plain track: A's gates.  Returns
+    (status agreement, p99, max endpoint distance, median shift error)."""
+    import torch
+
+    pairs = len(shifts) - 1
     v = valid[:-1]
     agree = (kst == pst)[v].float().mean().item()
     both = kst & pst
@@ -121,26 +235,99 @@ def phase_kernel_a(device):
     # known shifts: pair t moves content by -(shift[t+1] - shift[t])
     expect = torch.tensor(
         [[-(shifts[t + 1][1] - shifts[t][1]), -(shifts[t + 1][0] - shifts[t][0])]
-         for t in range(pairs)], dtype=torch.float32, device=device,
+         for t in range(pairs)], dtype=torch.float32, device=kp.device,
     )[:, None, None, :]
-    motion = (kp - pts[:-1])[both[..., None].expand_as(kp)].reshape(-1, 2)
     err_shift = torch.median(
         torch.linalg.norm((kp - pts[:-1] - expect)[both], dim=-1)
     ).item()
+    print(
+        f"{name}: valid {int(v.sum())} status agreement {agree:.5f} "
+        f"p99 endpoint {p99:.6f} px max {max_err:.6f} px "
+        f"median |track - known shift| {err_shift:.4f} px, tracked {int(both.sum())}"
+    )
+    check(agree >= 0.99, f"{name} status agreement {agree} < 0.99")
+    check(p99 <= 0.02, f"{name} p99 endpoint distance {p99} > 0.02 px")
+    check(untouched, f"{name} changed invalid slots")
+    check(err_shift < 0.1, f"{name} misses the known shifts by {err_shift} px")
+    return agree, p99, max_err, err_shift
+
+
+def phase_kernel_a(device):
+    """LK kernel vs plain LK on the card at the slice's shapes."""
+    from meshflow_tpu_torch.kernels import lk_cuda
+
+    planes, dims, pts, valid, shifts = lk_case(device, 8, 90, 160, 2, 6, SEED)
+
+    def run(level_fn):
+        return lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=level_fn)
+
+    kp, kst = run(lk_cuda.lk_level)
+    pp, pst = run(lk_cuda.lk_level_plain)
+    _, _, max_err, _ = lk_gates("kernel A", kp, kst, pp, pst, pts, valid, shifts)
     ms = median_ms(lambda: run(lk_cuda.lk_level))
     plain_ms = median_ms(lambda: run(lk_cuda.lk_level_plain))
-    print(
-        f"kernel A: valid {int(v.sum())} status agreement {agree:.5f} "
-        f"p99 endpoint {p99:.6f} px max {max_err:.6f} px "
-        f"median |track - known shift| {err_shift:.4f} px, tracked "
-        f"{int(both.sum())} (mean motion {motion.mean(0).tolist()}); "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (3 levels, {pairs} pairs)"
-    )
-    check(agree >= 0.99, f"kernel A status agreement {agree} < 0.99")
-    check(p99 <= 0.02, f"kernel A p99 endpoint distance {p99} > 0.02 px")
-    check(untouched, "kernel A changed invalid slots")
-    check(err_shift < 0.1, f"kernel A misses the known shifts by {err_shift} px")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    bound_ms, bound_by, stats = lk_bound(run, planes, 3)
+    print(f"kernel A: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; {stats}) (3 levels, 8 pairs, 16 tiles 90x160x3, K 512)")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_kernel_c(device):
+    """Kernel C vs the plain version and vs kernel A on the card, at the
+    640x360 slice's tiles and at 1080p track_downscale=1 tiles with shifts
+    up to +-20 px (the top level re-stages its patch)."""
+    import torch
+
+    from meshflow_tpu_torch.kernels import lk_band_cuda, lk_cuda
+    from meshflow_tpu_torch.kernels.lk import PAD
+
+    out = {"max_abs_err": 0.0}
+    for name, (pairs, th, tw, max_level, max_shift) in {
+        "640x360": (8, 90, 160, 2, 6),
+        "1080p-d1": (4, 270, 480, 3, 20),
+    }.items():
+        planes, dims, pts, valid, shifts = lk_case(device, pairs, th, tw, max_level,
+                                                   max_shift, SEED + 1)
+
+        def band():
+            with fetch_route("band"):
+                return lk_cuda.lk_track_pairs(planes, dims, pts, valid)
+
+        def run(level_fn):
+            return lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=level_fn)
+
+        before = lk_band_cuda.lk_level_band.launches
+        cp, cst = band()
+        check(lk_band_cuda.lk_level_band.launches == before + max_level + 1,
+              "kernel C launch count of one track")
+        ap, ast = run(lk_cuda.lk_level)
+        pp, pst = run(lk_cuda.lk_level_plain)
+        _, _, max_err, _ = lk_gates(f"kernel C {name}", cp, cst, pp, pst, pts, valid, shifts)
+        same_as_a = bool(torch.equal(cp, ap)) and bool(torch.equal(cst, ast))
+        print(f"kernel C {name}: corners and status bit-identical to kernel A: {same_as_a}")
+        check(same_as_a, f"kernel C differs from kernel A ({name})")
+        ms = median_ms(band)
+        a_ms = median_ms(lambda: run(lk_cuda.lk_level))
+        plain_ms = median_ms(lambda: run(lk_cuda.lk_level_plain))
+        bound_ms, bound_by, stats = lk_bound(run, planes, 3)
+        top, low = (
+            lk_band_cuda.occupancy(3, patch, dims[lvl][0] + 2 * PAD, dims[lvl][1] + 2 * PAD)
+            for patch, lvl in ((lk_band_cuda.PN_TOP, max_level), (lk_band_cuda.PN_LOWER, 0))
+        )
+        print(
+            f"kernel C {name}: kernel C {ms:.3f} ms, kernel A {a_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {stats}); "
+            f"{max_level + 1} levels, {pairs} pairs, 16 tiles {th}x{tw}x3, K 512; "
+            f"warps/SM, shared B/block: C top {top}, C lower {low}, A {lk_cuda.occupancy()}"
+        )
+        out["max_abs_err"] = max(out["max_abs_err"], max_err)
+        out[name] = {"ms": ms, "a_ms": a_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    main = out["640x360"]  # the tiles the 1080p path tracks at d=3
+    out.update(ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"], library_ms=None)
+    return out
 
 
 def phase_kernel_b(device):
@@ -190,7 +377,17 @@ def phase_kernel_b(device):
         check(edges_equal, f"kernel B crop edges differ ({name})")
         max_err = max(max_err, err)
         if frames > 1:
-            out = {"ms": ms, "plain_ms": plain_ms}
+            # csrc/bmap.cu per pixel: 4 cell searches of (rc-1)+(cc-1)
+            # compares, 3 fixed-point steps of 13 operations, 9 candidate
+            # cells of 13 operations + 8 for the bbox test; it reads the
+            # cell tables and writes map_x, map_y (4 B each) and covered.
+            cells = mesh * mesh
+            ops = frames * w * h * (4 * 2 * (mesh - 1) + 3 * 13 + 9 * 21)
+            nbytes = frames * (cells * 13 * 4 + w * h * 9)
+            bound_ms, bound_by = bound(ops, nbytes)
+            print(f"kernel B {name}: bound {bound_ms:.4f} ms ({bound_by})")
+            out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
     out["max_abs_err"] = max_err
     return out
 
@@ -224,21 +421,18 @@ def phase_main_path(device, num_frames=300, h=360, w=640, pan=120):
     import torch
 
     from meshflow_tpu_torch.api import MeshFlowStabilizer
-    from meshflow_tpu_torch.kernels import bmap_cuda, lk_cuda
 
     frames = torch.from_numpy(synthetic_clip(num_frames, h, w, pan=pan)).to(device)
     stab = MeshFlowStabilizer(device=device)
     variant = MeshFlowStabilizer.ADAPTIVE_WEIGHTS_DEFINITION_ORIGINAL
 
-    lk_cuda.lk_level.launches = 0
-    bmap_cuda.backward_map.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     start = time.perf_counter()
     cropped, ratio, distortion, stability = stab._stabilize_frames(frames, variant)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - start
-    launches = {"lk_level": lk_cuda.lk_level.launches,
-                "backward_map": bmap_cuda.backward_map.launches}
+    launches = read_launches()
 
     start = time.perf_counter()
     cropped2, *_ = stab._stabilize_frames(frames, variant)
@@ -265,6 +459,7 @@ def phase_main_path(device, num_frames=300, h=360, w=640, pan=120):
         f"{levels} levels x ({motion_blocks} motion + {metric_blocks} metric blocks)",
     )
     check(launches["backward_map"] == metric_blocks, "kernel B launch count")
+    check(launches["lk_band"] == 0, "kernel C ran on the default route")
     check(
         tuple(cropped.shape) == (num_frames, h, w, 3)
         and cropped.dtype == torch.uint8 and cropped.device.type == device,
@@ -278,6 +473,157 @@ def phase_main_path(device, num_frames=300, h=360, w=640, pan=120):
     # the camera pans right, so content (and the vertex displacement) moves left
     check(mean_dx < -pan / 2, f"mean displacement {mean_dx} does not follow the pan")
     return launches, cold_s, warm_s
+
+
+def check_output(name, stab, out, num_frames, h, w, pan, device):
+    """Shape, type, device, crop inside the frame, finite metrics with
+    stability in [0, 1], and the mean displacement following the pan."""
+    import math
+
+    import torch
+
+    cropped, ratio, distortion, stability = out
+    check(
+        tuple(cropped.shape) == (num_frames, h, w, 3)
+        and cropped.dtype == torch.uint8 and cropped.device.type == device,
+        f"{name}: output {tuple(cropped.shape)} {cropped.dtype} {cropped.device}",
+    )
+    crop = stab.last_crop.tolist()
+    left, top, right, bottom = crop
+    check(0 <= left < right <= w - 1 and 0 <= top < bottom <= h - 1, f"{name}: crop {crop}")
+    metrics = tuple(float(x) for x in (ratio, distortion, stability))
+    check(all(math.isfinite(x) for x in metrics), f"{name}: metrics {metrics} not finite")
+    check(0.0 <= metrics[2] <= 1.0, f"{name}: stability {metrics[2]} outside [0, 1]")
+    # the camera pans right, so content (and the vertex displacement) moves left
+    mean_dx = stab.last_motion.displacements[-1, ..., 0].mean().item()
+    check(mean_dx < -pan / 2, f"{name}: mean displacement {mean_dx} does not follow the pan")
+    return crop, metrics, mean_dx
+
+
+def phase_1080p(device, num_frames=300, h=1080, w=1920, pan=360):
+    """The 1080p path, automatic track geometry (d=3: tracking at 640x360),
+    with kernel C (MESHFLOW_LK_FETCH=band for this phase only), cold, warm,
+    then a third pass that times its stages."""
+    import math
+
+    import torch
+
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+    from meshflow_tpu_torch.utils.profiling import StageTimer
+
+    frames = torch.from_numpy(synthetic_clip(num_frames, h, w, pan=pan)).to(device)
+    stab = MeshFlowStabilizer(device=device)
+    config = stab.config
+    th, tw = config.track_shape(h, w)
+    with fetch_route("band"):
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = stab._stabilize_frames(frames, 0)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - start
+        launches = read_launches()
+        start = time.perf_counter()
+        out2 = stab._stabilize_frames(frames, 0)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - start
+        # a third pass for the stages: the timer synchronizes at each stage end
+        stab._stabilize_frames(frames, 0, StageTimer(enabled=True, device=device))
+    crop, metrics, mean_dx = check_output("1080p", stab, out, num_frames, h, w, pan, device)
+    stages = {name: round(sec, 4) for name, sec in stab.last_timer.stages}
+    chunk = stab.CHUNK
+    levels = config.lk_max_level(th, tw) + 1
+    blocks = math.ceil((num_frames - 1) / (chunk - 1)), math.ceil(num_frames / chunk)
+    print(
+        f"1080p path (d={config.resolve_track_downscale(h, w)}, tracking {tw}x{th}, band): "
+        f"{num_frames} frames {w}x{h}: cold {cold_s:.3f} s, warm {warm_s:.3f} s "
+        f"({num_frames / warm_s:.2f} fps warm); launches {launches}; crop {crop}; "
+        f"cropping ratio {metrics[0]:.6f}, distortion {metrics[1]:.6f}, stability "
+        f"{metrics[2]:.6f}; last-frame mean x displacement {mean_dx:.3f} px; "
+        f"third pass stages (s) {stages}"
+    )
+    check(launches["lk_band"] == levels * sum(blocks),
+          f"kernel C ran {launches['lk_band']} times, expected {levels} levels x "
+          f"({blocks[0]} motion + {blocks[1]} metric blocks)")
+    check(launches["lk_level"] == 0, "kernel A ran under MESHFLOW_LK_FETCH=band")
+    check(launches["backward_map"] == blocks[1], "kernel B launch count (1080p)")
+    check(torch.equal(out[0], out2[0]), "1080p warm pass output differs from cold pass")
+    return launches, frames[:64]
+
+
+def phase_1080p_control(device, frames, pan):
+    """64 frames of the 1080p clip at track_downscale=1 (270x480 tiles, 4
+    levels) and at the automatic d=3, both with kernel C."""
+    import torch
+
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+    from meshflow_tpu_torch.config import MeshFlowConfig
+
+    num_frames, h, w = frames.shape[:3]
+    rows = {}
+    for d in (1, 3):
+        stab = MeshFlowStabilizer(config=MeshFlowConfig(track_downscale=d), device=device)
+        levels = stab.config.lk_max_level(*stab.config.track_shape(h, w)) + 1
+        with fetch_route("band"):
+            reset_launches()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = stab._stabilize_frames(frames, 0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches = read_launches()
+        crop, metrics, _ = check_output(f"1080p d={d}", stab, out, num_frames, h, w, pan, device)
+        check(launches["lk_band"] == levels * 2 and launches["lk_level"] == 0,
+              f"1080p d={d}: launches {launches}, expected kernel C {levels} x (1 + 1)")
+        rows[d] = {"seconds": wall, "fps": num_frames / wall, "crop": crop,
+                   "cropping_ratio": metrics[0], "distortion": metrics[1],
+                   "stability": metrics[2], "launches": launches}
+        print(f"1080p control d={d} ({levels} levels): {num_frames} frames in {wall:.3f} s "
+              f"= {num_frames / wall:.2f} fps; crop {crop}; cropping ratio {metrics[0]:.6f}, "
+              f"distortion {metrics[1]:.6f}, stability {metrics[2]:.6f}; launches {launches}")
+    return rows
+
+
+def phase_online(device, num_frames=120, h=360, w=640):
+    """Online mode on a jittery 640x360 clip with the default fetch."""
+    import numpy as np
+    import torch
+
+    from meshflow_tpu_torch.online import OnlineMeshFlowStabilizer
+
+    frames = synthetic_clip(num_frames, h, w, pan=60)
+    stab = OnlineMeshFlowStabilizer(device=device)
+    levels = stab.config.lk_max_level(h, w) + 1
+    reset_launches()
+    times, outs, c_mean, p_mean = [], [], [], []
+    for frame in frames:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = stab.process(frame)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        outs.append(out)
+        state = stab._state
+        c_mean.append(state.unstab_window[-1].mean((0, 1)).cpu().numpy())
+        p_mean.append(state.stab_window[-1].mean((0, 1)).cpu().numpy())
+    launches = read_launches()
+    steady = np.asarray(times[10:])
+    c_jerk = np.abs(np.diff(np.asarray(c_mean[1:]), 2, axis=0)).mean()
+    p_jerk = np.abs(np.diff(np.asarray(p_mean[1:]), 2, axis=0)).mean()
+    p50, p90 = np.percentile(steady, 50), np.percentile(steady, 90)
+    print(f"online: {num_frames} frames {w}x{h}: first frame {times[0]:.3f} ms, per-frame "
+          f"p50 {p50:.3f} ms p90 {p90:.3f} ms (frames 10-{num_frames - 1}); launches "
+          f"{launches}; mean |second difference| of the frame-mean path: raw c_t "
+          f"{c_jerk:.4f} px, stabilized p_t {p_jerk:.4f} px")
+    check(np.array_equal(outs[0], frames[0]), "online: first output differs from first input")
+    check(all(o.shape == (h, w, 3) and o.dtype == np.uint8 for o in outs),
+          "online: output shape or dtype")
+    check(launches["lk_level"] == levels * (num_frames - 1) and launches["lk_band"] == 0,
+          f"online: kernel A ran {launches['lk_level']} times, expected {levels} x "
+          f"{num_frames - 1}")
+    check(launches["backward_map"] == num_frames - 1, "online: kernel B launch count")
+    check(p_jerk < c_jerk, f"online: stabilized path {p_jerk} not smoother than {c_jerk}")
+    return {"first_ms": times[0], "p50_ms": p50, "p90_ms": p90, "launches": launches}
 
 
 def phase_small_agreement(device):
@@ -309,7 +655,71 @@ def phase_small_agreement(device):
     check(max(rel) <= 1e-2, f"card vs CPU metrics differ by {rel}")
 
 
+def tree_run(tree: Path, warm_passes: int = 3) -> int:
+    """Kernel A on step 3's inputs and the 640x360 main path, with the
+    package imported from the checkout in `tree`: one JSON line of output
+    digests, crop, metrics and wall times."""
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import meshflow_tpu_torch
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+    from meshflow_tpu_torch.kernels import lk_cuda
+
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    planes, dims, pts, valid, _ = lk_case("cuda", 8, 90, 160, 2, 6, SEED)
+    kp, kst = lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=lk_cuda.lk_level)
+    frames = torch.from_numpy(synthetic_clip(300, 360, 640, pan=120)).to("cuda")
+    stab = MeshFlowStabilizer(device="cuda")
+    seconds = []
+    for _ in range(1 + warm_passes):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = stab._stabilize_frames(frames, MeshFlowStabilizer.ADAPTIVE_WEIGHTS_DEFINITION_ORIGINAL)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+    print(json.dumps({
+        "package": str(Path(meshflow_tpu_torch.__file__).parent),
+        "kernel_a": digest(kp, kst), "main_path": digest(out[0], stab.last_crop),
+        "crop": stab.last_crop.tolist(), "metrics": [float(x) for x in out[1:]],
+        "cold_s": seconds[0], "warm_s": seconds[1:],
+    }))
+    return 0
+
+
+def compare_trees(other: Path, here: Path) -> int:
+    """`tree_run` of `other` and of this checkout, each in its own process,
+    in the order other, this, this, other; both must give the same bytes."""
+    runs = []
+    for tree in (other, here, here, other):
+        res = subprocess.run(
+            [sys.executable, str(here / "chip_smoke.py"), "--tree", str(tree)],
+            stdout=subprocess.PIPE, text=True, timeout=900,
+        )
+        sys.stdout.write(res.stdout)
+        check(res.returncode == 0, f"the run of {tree} exited {res.returncode}")
+        runs.append(dict(json.loads(res.stdout.strip().splitlines()[-1]), tree=str(tree)))
+    for key in ("kernel_a", "main_path"):
+        check(len({r[key] for r in runs}) == 1, f"the trees' {key} outputs differ")
+    warm = {}
+    for r in runs:
+        warm.setdefault(r["tree"], []).extend(r["warm_s"])
+    print(json.dumps({"same_outputs": True, "warm_s": warm,
+                      "median_warm_s": {t: sorted(v)[len(v) // 2] for t, v in warm.items()}}))
+    return 0
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--compare", metavar="DIR", type=Path,
+                        help="time the checkout in DIR against this one (see above)")
+    parser.add_argument("--tree", metavar="DIR", type=Path, help=argparse.SUPPRESS)
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -322,6 +732,8 @@ def main() -> int:
     if not (repo / "meshflow_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: meshflow_tpu_torch not found beside this script", file=sys.stderr)
         return 2
+    if args.tree is not None:
+        return tree_run(args.tree.resolve())
     sys.path.insert(0, str(repo))
 
     smi = subprocess.run(
@@ -331,6 +743,8 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: none")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    if args.compare is not None:
+        return compare_trees(args.compare.resolve(), repo)
 
     import meshflow_tpu_torch  # noqa: F401  (TF32 pins)
     from meshflow_tpu_torch.kernels import _build
@@ -343,9 +757,14 @@ def main() -> int:
     _build.library()
 
     device = "cuda"
+    os.environ.pop("MESHFLOW_LK_FETCH", None)  # the default route, onehot
     a = phase_kernel_a(device)
     b = phase_kernel_b(device)
+    c = phase_kernel_c(device)
     launches, cold_s, warm_s = phase_main_path(device)
+    launches_1080p, first_block = phase_1080p(device)
+    phase_1080p_control(device, first_block, pan=360 * (64 - 1) / (300 - 1))
+    phase_online(device)
     phase_small_agreement(device)
 
     kernels = [
@@ -357,6 +776,12 @@ def main() -> int:
          "source": "meshflow_tpu_torch/csrc/bmap.cu",
          "replaces": "meshflow_tpu/kernels/bmap_pallas.py:90",
          "launches": launches["backward_map"], **b},
+        {"name": "lk_band", "route": "cuda",
+         "source": "meshflow_tpu_torch/csrc/lk_band.cu",
+         "replaces": "meshflow_tpu/kernels/_lk_pallas_band.py:89",
+         "launches": launches_1080p["lk_band"],
+         **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

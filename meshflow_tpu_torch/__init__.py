@@ -1,13 +1,19 @@
 """meshflow_tpu_torch — the MeshFlow stabilizer on PyTorch and CUDA.
 
-A port of the JAX package ``meshflow_tpu`` to PyTorch, with the two
-device kernels of the main path (one pyramid level of sparse Lucas-Kanade
-tracking, and the per-pixel backward map of the mesh warp) written by
-hand in CUDA C++ for Hopper (``csrc/``).  Same public contract:
+A port of the JAX package ``meshflow_tpu`` to PyTorch, with its device
+kernels written by hand in CUDA C++ for Hopper (``csrc/``): one pyramid
+level of sparse Lucas-Kanade tracking in two fetch forms (kernel A, taps
+from the plane; kernel C, taps from a patch staged in shared memory;
+``MESHFLOW_LK_FETCH`` picks one), and the per-pixel backward map of the
+mesh warp (kernel B).  Same public contract:
 
     MeshFlowStabilizer(...).stabilize(input_path, output_path,
                                       adaptive_weights_definition=...)
     -> (cropping_ratio, distortion_score, stability_score)
+
+plus online mode (``online.OnlineMeshFlowStabilizer``) and the command
+line ``python -m meshflow_tpu_torch.cli``.  Everything runs on the CUDA
+card unless the caller passes ``device="cpu"``.
 
 Importing the package needs neither JAX, cv2, nvcc nor a GPU: kernels are
 built at their first launch, and video I/O imports cv2 inside its

@@ -5,20 +5,28 @@ IOError behaviour follow ``meshflow_tpu/api.py:54-273``.  ``stabilize``
 decodes the clip, runs ``_stabilize_frames`` on the device and encodes
 the result.  ``_stabilize_frames`` is the in-memory, device-render route:
 
-1. BGR -> gray, FAST per subframe                   (motion.pipeline)
-2. LK over all adjacent pairs (kernel A), RANSAC, propagation, cumsum
+0. above the track pixel budget, d x d box-downscaled track planes
+   (motion.trackscale; d=3 at 1080p)
+1. BGR -> gray, FAST per subframe, at track geometry (motion.pipeline)
+2. LK over all adjacent pairs (kernel A, or C under MESHFLOW_LK_FETCH=band),
+   RANSAC, propagation, cumsum; velocities and homographies scaled back to
+   full resolution
 3. adaptive weights + banded Jacobi                  (solver)
-4. backward map (kernel B), warp, crop edges; crop + stretch (render)
-5. cropping ratio + distortion (kernel A again), stability (metrics)
+4. backward map (kernel B), warp, crop edges; crop + stretch (render),
+   at full resolution
+5. cropping ratio + distortion (the LK kernel again, on box-downscaled
+   cropped frames at track geometry), stability (metrics)
 
-The streaming route, the host renderer, track downscaling, gray planes,
-checkpointing, online mode, the sharded path and ``visualize`` are not
-part of this port yet and raise where the JAX package would take them.
+Stages are timed by ``utils.profiling.StageTimer`` (``last_timer``).  The
+streaming route, the host renderer, gray planes, checkpointing, the
+sharded path and ``visualize`` are not part of this port yet and raise
+where the JAX package would take them.  Online mode is ``online.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -27,15 +35,19 @@ from meshflow_tpu_torch.config import MeshFlowConfig, validate_adaptive_weights_
 from meshflow_tpu_torch.io import video as video_io
 from meshflow_tpu_torch.kernels.fast import Keypoints
 from meshflow_tpu_torch.metrics.quality import cropping_and_distortion, stability_score
+from meshflow_tpu_torch.motion import trackscale
 from meshflow_tpu_torch.motion.pipeline import estimate_motion_chunked, prepare_frames
 from meshflow_tpu_torch.render.stabilize import crop_frames, render_stabilized
 from meshflow_tpu_torch.solver.jacobi import jacobi_smooth
 from meshflow_tpu_torch.solver.weights import adaptive_weights
 from meshflow_tpu_torch.utils import grid, prng
+from meshflow_tpu_torch.utils.profiling import StageTimer
 
 
 def default_device() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """The port runs on the card unless the caller asks for the CPU
+    (``device="cpu"``); without a card the default fails as torch does."""
+    return "cuda"
 
 
 class MeshFlowStabilizer:
@@ -93,6 +105,12 @@ class MeshFlowStabilizer:
             )
         if track_planes is not None and track_planes != config.track_planes:
             config = dataclasses.replace(config, track_planes=track_planes)
+        # Serving mode: constructor argument > MESHFLOW_COMPUTE_METRICS
+        # (0, false, no or off disable it, in any case) > the config.
+        if compute_metrics is None:
+            env = os.environ.get("MESHFLOW_COMPUTE_METRICS", "").strip().lower()
+            if env:
+                compute_metrics = env not in ("0", "false", "no", "off")
         if compute_metrics is not None and compute_metrics != config.compute_metrics:
             config = dataclasses.replace(config, compute_metrics=compute_metrics)
         if config.visualize:
@@ -104,6 +122,7 @@ class MeshFlowStabilizer:
         self.config = config
         self.device = torch.device(device if device is not None else default_device())
         self._key = prng.PRNGKey(seed, device=self.device)
+        self.last_timer: StageTimer | None = None
 
     # ------------------------------------------------------------------
     def stabilize(
@@ -115,61 +134,87 @@ class MeshFlowStabilizer:
         """Stabilize input_path -> output_path; returns
         (cropping_ratio, distortion_score, stability_score)."""
         validate_adaptive_weights_definition(adaptive_weights_definition)
-        frames_np, info = video_io.read_video(input_path)
-        frames = torch.from_numpy(frames_np).to(self.device)
+        timer = StageTimer(device=self.device)
+        with timer.stage("decode"):
+            frames_np, info = video_io.read_video(input_path)
+        with timer.stage("host->device"):
+            frames = torch.from_numpy(frames_np).to(self.device)
         cropped, cropping_ratio, distortion, stability = self._stabilize_frames(
-            frames, adaptive_weights_definition
+            frames, adaptive_weights_definition, timer
         )
-        video_io.write_video(output_path, cropped.cpu().numpy(), info.fps, info.fourcc)
+        with timer.stage("device->host"):
+            cropped_np = cropped.cpu().numpy()
+        with timer.stage("encode"):
+            video_io.write_video(output_path, cropped_np, info.fps, info.fourcc)
+        timer.report()
         return float(cropping_ratio), float(distortion), float(stability)
 
     # ------------------------------------------------------------------
-    def _stabilize_frames(self, frames: torch.Tensor, adaptive_weights_definition: int):
+    def _stabilize_frames(
+        self, frames: torch.Tensor, adaptive_weights_definition: int, timer=None
+    ):
         """(F, H, W, 3) uint8 -> (cropped (F, H, W, 3) uint8, cropping_ratio,
-        distortion_score, stability_score), all tensors on self.device."""
+        distortion_score, stability_score), all tensors on self.device.
+        timer: a StageTimer (default: one that MESHFLOW_TIMINGS enables),
+        kept as ``last_timer``."""
         validate_adaptive_weights_definition(adaptive_weights_definition)
         config = self.config
+        timer = timer or StageTimer(device=self.device)
+        self.last_timer = timer
         frames = torch.as_tensor(frames).to(self.device)
         if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[-1] != 3:
             raise ValueError("frames must be (F, H, W, 3) uint8 BGR")
         num_frames, h, w = frames.shape[:3]
-        if config.resolve_track_downscale(h, w) != 1:
-            raise NotImplementedError(
-                "frames above the track pixel budget need track downscaling, "
-                "which is not ported yet"
-            )
         chunk = min(self.CHUNK, num_frames)
         unstab_grid = grid.vertex_grid(config, h, w, device=self.device)
 
-        keypoints, _ = prepare_frames(frames, config)
-        motion = estimate_motion_chunked(
-            keypoints, frames, prng.fold_in(self._key, 1), config, h, w,
-            chunk_pairs=max(chunk - 1, 1),
-        )
-        lambdas = adaptive_weights(motion.homographies, w, h, adaptive_weights_definition)
-        stab_disp = jacobi_smooth(
-            motion.displacements,
-            lambdas,
-            config.temporal_smoothing_radius,
-            config.optimization_num_iterations,
-        )
+        # Track geometry: detection, motion and the metric pass run at
+        # (th, tw) on box-downscaled planes; solver and render at (h, w).
+        d_track = config.resolve_track_downscale(h, w)
+        th, tw = config.track_shape(h, w)
+        frames_track = trackscale.to_track_planes_dev(frames, config) if d_track > 1 else frames
+        sx, sy = trackscale.scale_factors(h, w, config)
+
+        with timer.stage("detect"):
+            keypoints, _ = prepare_frames(frames_track, config)
+        with timer.stage("motion"):
+            motion = estimate_motion_chunked(
+                keypoints, frames_track, prng.fold_in(self._key, 1), config, th, tw,
+                chunk_pairs=max(chunk - 1, 1),
+            )
+            if d_track > 1:
+                motion = motion._replace(
+                    displacements=trackscale.scale_velocities(motion.displacements, sx, sy),
+                    homographies=trackscale.conjugate_homographies(
+                        motion.homographies, sx, sy
+                    ),
+                )
+        with timer.stage("solver"):
+            lambdas = adaptive_weights(motion.homographies, w, h, adaptive_weights_definition)
+            stab_disp = jacobi_smooth(
+                motion.displacements,
+                lambdas,
+                config.temporal_smoothing_radius,
+                config.optimization_num_iterations,
+            )
 
         # Warp in blocks; the video crop is the intersection of the
         # per-block crops.
-        stabilized, crops = [], []
-        for start in range(0, num_frames, chunk):
-            sl = slice(start, start + chunk)
-            stab_c, crop_c = render_stabilized(
-                frames[sl], motion.displacements[sl], stab_disp[sl], unstab_grid,
-                config, h, w,
+        with timer.stage("warp+crop"):
+            stabilized, crops = [], []
+            for start in range(0, num_frames, chunk):
+                sl = slice(start, start + chunk)
+                stab_c, crop_c = render_stabilized(
+                    frames[sl], motion.displacements[sl], stab_disp[sl], unstab_grid,
+                    config, h, w,
+                )
+                stabilized.append(stab_c)
+                crops.append(crop_c)
+            crops = torch.stack(crops)
+            crop = torch.stack(
+                [crops[:, 0].amax(), crops[:, 1].amax(), crops[:, 2].amin(), crops[:, 3].amin()]
             )
-            stabilized.append(stab_c)
-            crops.append(crop_c)
-        crops = torch.stack(crops)
-        crop = torch.stack(
-            [crops[:, 0].amax(), crops[:, 1].amax(), crops[:, 2].amin(), crops[:, 3].amin()]
-        )
-        cropped = torch.cat([crop_frames(s, crop, h, w) for s in stabilized])
+            cropped = torch.cat([crop_frames(s, crop, h, w) for s in stabilized])
         # Exposed for inspection: the last run's motion state and crop.
         self.last_motion, self.last_crop = motion, crop
         del stabilized
@@ -178,22 +223,26 @@ class MeshFlowStabilizer:
             nan = torch.tensor(float("nan"), device=self.device)
             return cropped, nan, nan, stability
 
-        ratios, distortions = [], []
-        metric_key = prng.fold_in(self._key, 2)
-        for start in range(0, num_frames, chunk):
-            sl = slice(start, start + chunk)
-            r, d = cropping_and_distortion(
-                Keypoints(*(a[sl] for a in keypoints)),
-                frames[sl],
-                cropped[sl],
-                metric_key,
-                start,
-                config,
-                h,
-                w,
-            )
-            ratios.append(r)
-            distortions.append(d)
-        cropping_ratio = torch.cat(ratios).mean()
-        distortion_score = torch.cat(distortions).amin()
+        with timer.stage("metrics"):
+            ratios, distortions = [], []
+            metric_key = prng.fold_in(self._key, 2)
+            for start in range(0, num_frames, chunk):
+                sl = slice(start, start + chunk)
+                cropped_c = cropped[sl]
+                if d_track > 1:
+                    cropped_c = trackscale.to_track_planes_dev(cropped_c, config)
+                r, d = cropping_and_distortion(
+                    Keypoints(*(a[sl] for a in keypoints)),
+                    frames_track[sl],
+                    cropped_c,
+                    metric_key,
+                    start,
+                    config,
+                    th,
+                    tw,
+                )
+                ratios.append(r)
+                distortions.append(d)
+            cropping_ratio = torch.cat(ratios).mean()
+            distortion_score = torch.cat(distortions).amin()
         return cropped, cropping_ratio, distortion_score, stability

@@ -1,8 +1,9 @@
 """State carried across from the JAX package, as numpy arrays.
 
 The system has no learned weights: what moves between the two packages
-is the configuration, the PRNG key and the motion state.  The caller
-converts JAX arrays with ``np.asarray``; this module imports no JAX.
+is the configuration, the PRNG key, the motion state and the online
+state.  The caller converts JAX arrays with ``np.asarray``; this module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -49,4 +50,34 @@ def motion_from_numpy(
         displacements=torch.as_tensor(np.array(displacements, np.float32), device=device),
         homographies=torch.as_tensor(np.array(homographies, np.float32), device=device),
         pair_ok=torch.as_tensor(np.array(pair_ok, bool), device=device),
+    )
+
+
+def online_state_from_numpy(
+    prev_frame,
+    positions,
+    scores,
+    valid,
+    unstab_window,
+    stab_window,
+    step,
+    config: MeshFlowConfig,
+    device="cpu",
+):
+    """A JAX ``OnlineState`` as the port's: the previous frame's keypoints
+    ((S, K) positions, scores, valid), both (OMEGA+1, R+1, C+1, 2) windows
+    and the step count are carried across; the previous frame's tile
+    planes are rebuilt from ``prev_frame`` ((H, W, 3) uint8) by the port's
+    ``online_prepare`` (the JAX state's pyramid layout depends on its
+    tracker backend)."""
+    from meshflow_tpu_torch.online import OnlineState, online_prepare
+
+    frame = torch.as_tensor(np.array(prev_frame, np.uint8), device=device)
+    _, planes = online_prepare(frame, config, frame.shape[0], frame.shape[1])
+    return OnlineState(
+        prev_planes=planes,
+        prev_kps=keypoints_from_numpy(positions, scores, valid, device=device),
+        unstab_window=torch.as_tensor(np.array(unstab_window, np.float32), device=device),
+        stab_window=torch.as_tensor(np.array(stab_window, np.float32), device=device),
+        step=int(step),
     )

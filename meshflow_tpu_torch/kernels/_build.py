@@ -99,6 +99,16 @@ def library() -> ctypes.CDLL:
             p,  # stream
         ]
         lib.meshflow_lk_level.restype = i
+        lib.meshflow_lk_band.argtypes = lib.meshflow_lk_level.argtypes[:-1] + [
+            i,  # pn: staged patch size
+            p,  # stream
+        ]
+        lib.meshflow_lk_band.restype = i
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.meshflow_lk_level_occupancy.argtypes = [ip, ip]
+        lib.meshflow_lk_level_occupancy.restype = i
+        lib.meshflow_lk_band_occupancy.argtypes = [i, i, i, i, ip, ip]
+        lib.meshflow_lk_band_occupancy.restype = i
         lib.meshflow_bmap.argtypes = [
             p, p, p, p,  # table, map_x, map_y, covered
             i, i, i, i, i,  # F, H, W, rows, cols

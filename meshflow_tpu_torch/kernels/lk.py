@@ -113,7 +113,9 @@ def _track_chunk(
     prev_flat, next_flat, pidx, nidx, pts, guess, status, rows, cols,
     max_iters, eps, min_eig_threshold, is_level0,
 ):
-    """Track n valid slots through one level; returns (corner, status)."""
+    """Track n valid slots through one level; returns (corner, status,
+    iterations): iterations counts the steps each slot took (window reads
+    of the next image)."""
     hpad, wpad = prev_flat.shape[-2], prev_flat.shape[-1]
     ipx_f = torch.floor(pts[:, 0])
     ipy_f = torch.floor(pts[:, 1])
@@ -154,6 +156,7 @@ def _track_chunk(
     active = inb_prev & well_posed
     corner = guess.clone()
     prev_delta = torch.zeros_like(corner)
+    iterations = torch.zeros(corner.shape[0], dtype=torch.int32, device=corner.device)
     eps2 = eps * eps
     for j in range(max_iters):
         if not bool(active.any()):
@@ -168,6 +171,7 @@ def _track_chunk(
         if is_level0:
             status = status & (inb | ~active)
         still = active & inb
+        iterations += still.to(torch.int32)
         jy = torch.clamp(icy + PAD, 0, hpad - 22)
         jx = torch.clamp(icx + PAD, 0, wpad - 22)
         jwin = _bilinear(_windows(next_flat, nidx, jy, jx, 22), fb, fa)
@@ -190,7 +194,7 @@ def _track_chunk(
         exhausted = j + 1 >= max_iters
         active = still & ~converged & ~oscillating & (not exhausted)
         prev_delta = delta
-    return corner, status
+    return corner, status, iterations
 
 
 def lk_level_plain(
@@ -207,6 +211,7 @@ def lk_level_plain(
     eps: float = 0.01,
     min_eig_threshold: float = 1e-4,
     is_level0: bool = False,
+    return_iters: bool = False,
 ):
     """One pyramid level for every (pair, tile, feature) slot.
 
@@ -216,7 +221,9 @@ def lk_level_plain(
     plane t into next plane t of the second array.
     pts: (T, S, K, 2) float32 prev window corners at this level (position
     minus HALF); guess: (T, S, K, 2) next-corner estimates; valid,
-    status_in: (T, S, K) bool.  Returns (corners (T, S, K, 2), status).
+    status_in: (T, S, K) bool.  Returns (corners (T, S, K, 2), status),
+    and with return_iters also the steps each slot took ((T, S, K) int32,
+    the count a kernel's loop runs on the same inputs).
     """
     t, s, k, _ = pts.shape
     c, hpad, wpad = prev_planes.shape[2:]
@@ -224,6 +231,7 @@ def lk_level_plain(
     next_flat = next_planes.reshape(-1, c, hpad, wpad)
     corner = guess.reshape(-1, 2).clone()
     status = status_in.reshape(-1).clone()
+    iterations = torch.zeros(status.shape, dtype=torch.int32, device=status.device)
     slots = torch.nonzero(valid.reshape(-1)).reshape(-1)
     shift = 1 if shifted else 0
     pts_flat = pts.reshape(-1, 2)
@@ -231,7 +239,7 @@ def lk_level_plain(
         idx = slots[start : start + _CHUNK]
         pair = idx // (s * k)
         tile = (idx // k) % s
-        c_out, st_out = _track_chunk(
+        c_out, st_out, it_out = _track_chunk(
             prev_flat, next_flat,
             pair * s + tile, (pair + shift) * s + tile,
             pts_flat[idx], corner[idx], status[idx], rows, cols,
@@ -239,4 +247,6 @@ def lk_level_plain(
         )
         corner[idx] = c_out
         status[idx] = st_out
-    return corner.reshape(t, s, k, 2), status.reshape(t, s, k)
+        iterations[idx] = it_out
+    out = (corner.reshape(t, s, k, 2), status.reshape(t, s, k))
+    return out + (iterations.reshape(t, s, k),) if return_iters else out

@@ -1,5 +1,5 @@
 """Kernel A: one pyramid level of sparse LK on the card, and the
-coarse-to-fine tracker that drives it.
+coarse-to-fine tracker that drives kernel A or kernel C.
 
 ``lk_level`` launches ``csrc/lk_level.cu`` for a CUDA tensor and takes
 the plain version ``lk_level_plain`` (``kernels/lk.py``) for a CPU
@@ -7,7 +7,9 @@ tensor; it never falls back from one to the other.  It replaces the JAX
 package's Pallas kernel ``_lk_level_kernel``
 (``meshflow_tpu/kernels/_lk_pallas_onehot.py:73``, driven by
 ``lk_track_pairs_pallas`` / ``lk_track_parallel_pallas``).
-``lk_level.launches`` counts kernel launches.
+``lk_level.launches`` counts kernel launches.  ``launch_level`` checks a
+level's tensors and calls a C entry point; kernel C
+(``lk_band_cuda.py``) launches through it too.
 
 ``lk_track_parallel`` and ``lk_track_pairs`` mirror the JAX package's: the
 top level starts at the source position (or ``init_pts``), guesses double
@@ -25,6 +27,60 @@ from meshflow_tpu_torch.kernels import _build
 from meshflow_tpu_torch.kernels.lk import HALF, PAD, lk_level_plain
 
 __all__ = ["lk_level", "lk_level_plain", "lk_track_parallel", "lk_track_pairs"]
+
+
+def launch_level(
+    entry: str,
+    args,
+    rows: int,
+    cols: int,
+    shifted: bool,
+    max_iters: int,
+    eps: float,
+    min_eig_threshold: float,
+    is_level0: bool,
+    *extra,
+):
+    """Check one level's CUDA tensors and launch the C entry point `entry`
+    of the kernel library on them (kernels A and C take the same tensors);
+    `extra` are the entry point's ints after is_level0.  Returns (corners,
+    status)."""
+    prev_planes, next_planes, pts, guess, valid, status_in = args
+    device = prev_planes.device
+    if device.type != "cuda" or any(a.device != device for a in args):
+        raise ValueError(f"{entry}: all tensors must be on one CUDA device")
+    f, s, c, hpad, wpad = prev_planes.shape
+    t, s2, k, two = pts.shape
+    if (
+        prev_planes.dtype != torch.uint8
+        or next_planes.dtype != torch.uint8
+        or next_planes.shape[1:] != prev_planes.shape[1:]
+        or s2 != s or two != 2
+        or guess.shape != pts.shape
+        or valid.shape != (t, s, k) or status_in.shape != (t, s, k)
+        or pts.dtype != torch.float32 or guess.dtype != torch.float32
+        or valid.dtype != torch.bool or status_in.dtype != torch.bool
+        or hpad != rows + 2 * PAD or wpad != cols + 2 * PAD
+        or not 1 <= c <= 3
+    ):
+        raise ValueError(f"{entry}: unsupported shapes or dtypes")
+    shift = 1 if shifted else 0
+    if t + shift > f or t + shift > next_planes.shape[0]:
+        raise ValueError(f"{entry}: more pairs than planes")
+    args = [a.contiguous() for a in args]
+    corner = torch.empty_like(args[2])
+    status = torch.empty_like(args[5])
+    err = getattr(_build.library(), entry)(
+        *(ctypes.c_void_p(a.data_ptr()) for a in args),
+        ctypes.c_void_p(corner.data_ptr()),
+        ctypes.c_void_p(status.data_ptr()),
+        t, s, k, c, hpad, wpad, rows, cols, shift, max_iters,
+        float(eps) * float(eps), float(min_eig_threshold), int(is_level0),
+        *extra,
+        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
+    )
+    _build.check(err, entry)
+    return corner, status
 
 
 def lk_level(
@@ -50,45 +106,26 @@ def lk_level(
             *args, rows, cols, shifted, max_iters, eps, min_eig_threshold,
             is_level0,
         )
-    device = prev_planes.device
-    if device.type != "cuda" or any(a.device != device for a in args):
-        raise ValueError("lk_level: all tensors must be on one CUDA device")
-    f, s, c, hpad, wpad = prev_planes.shape
-    t, s2, k, two = pts.shape
-    if (
-        prev_planes.dtype != torch.uint8
-        or next_planes.dtype != torch.uint8
-        or next_planes.shape[1:] != prev_planes.shape[1:]
-        or s2 != s or two != 2
-        or guess.shape != pts.shape
-        or valid.shape != (t, s, k) or status_in.shape != (t, s, k)
-        or pts.dtype != torch.float32 or guess.dtype != torch.float32
-        or valid.dtype != torch.bool or status_in.dtype != torch.bool
-        or hpad != rows + 2 * PAD or wpad != cols + 2 * PAD
-        or not 1 <= c <= 3
-    ):
-        raise ValueError("lk_level: unsupported shapes or dtypes")
-    shift = 1 if shifted else 0
-    if t + shift > f or t + shift > next_planes.shape[0]:
-        raise ValueError("lk_level: more pairs than planes")
-    args = [a.contiguous() for a in args]
-    corner = torch.empty_like(args[2])
-    status = torch.empty_like(args[5])
-    lib = _build.library()
-    err = lib.meshflow_lk_level(
-        *(ctypes.c_void_p(a.data_ptr()) for a in args),
-        ctypes.c_void_p(corner.data_ptr()),
-        ctypes.c_void_p(status.data_ptr()),
-        t, s, k, c, hpad, wpad, rows, cols, shift, max_iters,
-        float(eps) * float(eps), float(min_eig_threshold), int(is_level0),
-        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
+    out = launch_level(
+        "meshflow_lk_level", args, rows, cols, shifted, max_iters, eps,
+        min_eig_threshold, is_level0,
     )
-    _build.check(err, "lk_level")
     lk_level.launches += 1
-    return corner, status
+    return out
 
 
 lk_level.launches = 0
+
+
+def occupancy():
+    """(resident warps per SM, shared bytes per block) of kernel A on the
+    current card."""
+    warps, smem = ctypes.c_int(), ctypes.c_int()
+    _build.check(
+        _build.library().meshflow_lk_level_occupancy(ctypes.byref(warps), ctypes.byref(smem)),
+        "lk_level occupancy",
+    )
+    return warps.value, smem.value
 
 
 def lk_track_parallel(
@@ -109,10 +146,14 @@ def lk_track_parallel(
     prev_levels/next_levels: per level (F, S, C, rows+2*PAD, cols+2*PAD)
     uint8; level_dims: per level (rows, cols); pts: (T, S, K, 2) tile-local
     level-0 positions; valid: (T, S, K) bool.  Returns (next_pts, status).
-    level_fn replaces ``lk_level`` (``lk_level_plain`` holds the kernel's
-    result against the plain version on the same device).
+    Each level runs the kernel that ``MESHFLOW_LK_FETCH`` names when this
+    call starts (``kernels/lk_fetch.py``); level_fn, when given, replaces it
+    at every level (``lk_level_plain`` holds a kernel's result against the
+    plain version on the same device).
     """
-    level_fn = level_fn or lk_level
+    from meshflow_tpu_torch.kernels import lk_fetch
+
+    route = lk_fetch.fetch_route()
     max_level = len(prev_levels) - 1
     status = valid
     start = pts if init_pts is None else init_pts
@@ -122,7 +163,8 @@ def lk_track_parallel(
         prev_l = pts / (2.0**level) - HALF
         if level != max_level:
             next_pts = next_pts * 2.0
-        corner, status = level_fn(
+        fn = level_fn or lk_fetch.level_function(route, top=(level == max_level))
+        corner, status = fn(
             prev_levels[level],
             next_levels[level],
             prev_l,

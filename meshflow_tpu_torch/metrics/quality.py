@@ -2,7 +2,8 @@
 ``meshflow_tpu/metrics/quality.py``.
 
 * cropping ratio and distortion: each unstabilized frame is re-tracked
-  into its cropped output (parallel pairs through kernel A, no seeding:
+  into its cropped output (parallel pairs through the LK kernel that
+  MESHFLOW_LK_FETCH names, A or C; no seeding:
   the reference's zero-init tracker population is part of the metric),
   matched with the full RANSAC + least-squares stack, and scored as
   1 / (H00 * H11) and the affine eigenvalue ratio; the caller takes the

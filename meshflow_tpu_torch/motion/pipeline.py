@@ -2,8 +2,8 @@
 ``meshflow_tpu/motion/pipeline.py`` on its kernel-tracker route.
 
 Per block of frames: pack the uint8 tile pyramids once, track every
-adjacent pair's keypoints with kernel A (one launch per pyramid level for
-all pairs), then match and propagate the pairs in batches, and integrate
+adjacent pair's keypoints with the LK kernel that MESHFLOW_LK_FETCH names
+(kernel A or C, one launch per pyramid level for all pairs), then match and propagate the pairs in batches, and integrate
 the per-pair vertex velocities with a cumulative sum.  The JAX package's
 ``jit``/``scan`` become Python loops over blocks of pairs.
 """

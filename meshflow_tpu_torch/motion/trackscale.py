@@ -1,0 +1,109 @@
+"""Track geometry: motion estimation on box-downscaled frames (the port of
+``meshflow_tpu/motion/trackscale.py``).
+
+Above the track pixel budget (``MeshFlowConfig.resolve_track_downscale``:
+d=2 at 720p, d=3 at 1080p) every tracking stage runs on d x d
+box-downscaled frames, and the results are converted back at the solver
+boundary:
+
+* vertex velocities scale by (sx, sy) = (w/tw, h/th), exact because the
+  banded Jacobi solve is linear in the displacements;
+* per-pair homographies conjugate as H_full = S H_track S^-1 with
+  S = diag(sx, sy, 1), which leaves the adaptive-weight features and the
+  metric formulas invariant;
+* the metric pass compares the d-downscaled original with the
+  d-downscaled output.
+
+The downscale is an exact integer box mean with cv2.resize(INTER_AREA)
+rounding: the device version reproduces cv2's tie rule per factor
+(half-up when d*d is odd, where ties cannot occur; half-up at d=2;
+half-even at even d >= 4), so host- and device-derived track planes agree
+bit for bit.  Frames are cropped to (th*d, tw*d) first.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from meshflow_tpu_torch.config import MeshFlowConfig
+
+# Frames box-downscaled together: bounds the int32 block sums to ~1.6 GB
+# at 1080p.
+_BLOCK = 64
+
+
+def scale_factors(
+    frame_height: int, frame_width: int, config: MeshFlowConfig
+) -> tuple[float, float]:
+    """(sx, sy): track-geometry displacements -> full-resolution pixels."""
+    th, tw = config.track_shape(frame_height, frame_width)
+    return frame_width / tw, frame_height / th
+
+
+def box_downscale_host(frames: np.ndarray, d: int) -> np.ndarray:
+    """(F, H, W, C) uint8 -> (F, H//d, W//d, C), integer box mean:
+    cv2.resize(INTER_AREA) after cropping to a multiple of d."""
+    if d == 1:
+        return frames
+    import cv2
+
+    f, h, w, c = frames.shape
+    th, tw = h // d, w // d
+    out = np.empty((f, th, tw, c), np.uint8)
+    for i in range(f):
+        src = frames[i, : th * d, : tw * d]
+        if c == 1:
+            out[i, :, :, 0] = cv2.resize(
+                src[:, :, 0], (tw, th), interpolation=cv2.INTER_AREA
+            )
+        else:
+            cv2.resize(src, (tw, th), interpolation=cv2.INTER_AREA, dst=out[i])
+    return out
+
+
+def _box_block(frames: torch.Tensor, d: int) -> torch.Tensor:
+    f, h, w, c = frames.shape
+    th, tw = h // d, w // d
+    cropped = frames[:, : th * d, : tw * d]
+    s = cropped.reshape(f, th, d, tw, d, c).to(torch.int32).sum(dim=(2, 4))
+    dd = d * d
+    base, rem = s // dd, s % dd
+    if dd % 2 == 1:
+        rounded = base + (2 * rem > dd).to(torch.int32)
+    elif d == 2:
+        rounded = base + (2 * rem >= dd).to(torch.int32)
+    else:
+        up = torch.where(2 * rem == dd, base % 2, (2 * rem > dd).to(torch.int32))
+        rounded = base + up
+    return rounded.to(torch.uint8)
+
+
+def box_downscale_dev(frames: torch.Tensor, d: int) -> torch.Tensor:
+    """Device version of box_downscale_host (bit-identical, uint8 in and
+    out, integer arithmetic throughout), on the frames' device."""
+    if d == 1:
+        return frames
+    return torch.cat(
+        [_box_block(frames[i : i + _BLOCK], d) for i in range(0, frames.shape[0], _BLOCK)]
+    )
+
+
+def to_track_planes_dev(frames_bgr: torch.Tensor, config: MeshFlowConfig) -> torch.Tensor:
+    """(F, H, W, 3) uint8 BGR -> downscaled (F, th, tw, 3) tracker planes."""
+    if config.track_planes != "bgr":
+        raise NotImplementedError("track_planes='gray' is not ported yet")
+    d = config.resolve_track_downscale(frames_bgr.shape[1], frames_bgr.shape[2])
+    return box_downscale_dev(frames_bgr, d)
+
+
+def scale_velocities(velocities: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
+    """Per-pair vertex velocities, track geometry -> full-res pixels."""
+    return velocities * torch.tensor([sx, sy], dtype=velocities.dtype, device=velocities.device)
+
+
+def conjugate_homographies(homographies: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
+    """H_full = S H_track S^-1, S = diag(sx, sy, 1), batched over frames;
+    H22 = 1 is preserved."""
+    s = torch.tensor([sx, sy, 1.0], dtype=homographies.dtype, device=homographies.device)
+    return homographies * (s[:, None] / s[None, :])

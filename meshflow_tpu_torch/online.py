@@ -1,0 +1,222 @@
+"""Online (streaming) minimum-latency stabilization: the port of
+``meshflow_tpu/online.py``.
+
+Each incoming frame is stabilized from the committed past only, at one
+frame of algorithmic latency.  Per frame t:
+
+1. track frame t-1's keypoints into frame t (the LK kernel that
+   ``MESHFLOW_LK_FETCH`` names, one launch per pyramid level; the plain
+   version on the CPU), match and propagate -> velocity -> unstabilized
+   displacement c_t = c_{t-1} + v;
+2. solve for p_t over a causal window of the last OMEGA committed
+   stabilized displacements, the exact coordinate-descent step of the
+   offline energy for the newest frame with the past frozen,
+   p_t = (c_t + 2 lambda_t sum_r w_{t,r} p_r) / (1 + 2 lambda_t sum_r w_{t,r}),
+   then clamp p_t - c_t to the reserved cropping margin;
+3. warp frame t by (p_t - c_t) (backward map: kernel B on the card) and
+   apply the fixed reserved-margin crop.
+
+The JAX package prefers its native host renderer when one is built; the
+port has none and always takes the device-warp branch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from meshflow_tpu_torch.api import default_device
+from meshflow_tpu_torch.config import MeshFlowConfig
+from meshflow_tpu_torch.kernels.bmap_cuda import backward_map
+from meshflow_tpu_torch.kernels.color import bgr_to_gray
+from meshflow_tpu_torch.kernels.fast import Keypoints, detect_keypoints
+from meshflow_tpu_torch.kernels.pyramid import pyramid_shapes
+from meshflow_tpu_torch.motion.features import match_from_tracks
+from meshflow_tpu_torch.motion.pipeline import pack_tile_planes_u8, track_planes
+from meshflow_tpu_torch.motion.propagate import vertex_velocities
+from meshflow_tpu_torch.render.stabilize import crop_resize_frame, warp_frame
+from meshflow_tpu_torch.solver.jacobi import gaussian_band
+from meshflow_tpu_torch.solver.weights import adaptive_weights
+from meshflow_tpu_torch.utils import grid, prng
+
+
+@dataclasses.dataclass
+class OnlineState:
+    """Carried across steps: frame t-1's packed tile planes and keypoints
+    (each step's preparation of frame t serves the next step's tracking),
+    the windows of the last OMEGA+1 displacements, and the step count."""
+
+    prev_planes: tuple  # per level (1, S, C, rows_l + 2*PAD, cols_l + 2*PAD) uint8
+    prev_kps: Keypoints  # (S, K) keypoints of frame t-1
+    unstab_window: torch.Tensor  # (OMEGA+1, R+1, C+1, 2) c_{t-OMEGA..t}
+    stab_window: torch.Tensor  # (OMEGA+1, R+1, C+1, 2) p_{t-OMEGA..t}
+    step: int  # frames processed so far
+
+
+def online_prepare(frame: torch.Tensor, config: MeshFlowConfig, frame_height: int,
+                   frame_width: int):
+    """Per-frame preparation: (H, W, 3) uint8 -> (keypoints, planes)."""
+    max_level = config.lk_max_level(frame_height, frame_width)
+    kps = detect_keypoints(bgr_to_gray(frame), config, frame_height, frame_width)
+    planes, _ = pack_tile_planes_u8(frame[None], config, max_level)
+    return kps, planes
+
+
+def initial_state(frame: torch.Tensor, config: MeshFlowConfig) -> OnlineState:
+    """The state after the first frame: zero windows, step 0."""
+    h, w = frame.shape[:2]
+    zeros = torch.zeros(
+        (config.temporal_smoothing_radius + 1, config.vertex_rows, config.vertex_cols, 2),
+        dtype=torch.float32, device=frame.device,
+    )
+    kps, planes = online_prepare(frame, config, h, w)
+    return OnlineState(planes, kps, zeros, zeros.clone(), 0)
+
+
+def _online_margins(frame_width: int, frame_height: int, crop_ratio: float):
+    return (
+        int(round(frame_width * (1.0 - crop_ratio) / 2)),
+        int(round(frame_height * (1.0 - crop_ratio) / 2)),
+    )
+
+
+def online_crop_rect(frame_width: int, frame_height: int, crop_ratio: float) -> np.ndarray:
+    """The fixed reserved-margin crop [left, top, right, bottom]."""
+    margin_x, margin_y = _online_margins(frame_width, frame_height, crop_ratio)
+    return np.asarray(
+        [margin_x, margin_y, frame_width - 1 - margin_x, frame_height - 1 - margin_y],
+        np.int32,
+    )
+
+
+def online_motion_solve(
+    state: OnlineState,
+    frame: torch.Tensor,
+    key: torch.Tensor,
+    config: MeshFlowConfig,
+    frame_height: int,
+    frame_width: int,
+    adaptive_weights_definition: int = 0,
+    crop_ratio: float = 0.8,
+):
+    """Motion + causal solve for one frame: (state, frame t) ->
+    (new state, c_t, p_t).
+
+    The stabilizing shift p_t - c_t is clamped per vertex to the reserved
+    cropping margin: a shift of +-margin moves content by exactly the
+    strip the fixed crop discards, so the crop window stays covered.
+    """
+    device = frame.device
+    omega = config.temporal_smoothing_radius
+    unstab_grid = grid.vertex_grid(config, frame_height, frame_width, device=device)
+
+    cur_kps, cur_planes = online_prepare(frame, config, frame_height, frame_width)
+    kps = state.prev_kps
+    max_level = config.lk_max_level(frame_height, frame_width)
+    tile_h, tile_w = config.subframe_shape(frame_height, frame_width)
+    dims = tuple(pyramid_shapes(tile_h, tile_w, max_level))
+    late, tracked = track_planes(
+        kps.positions[None], kps.valid[None], state.prev_planes, cur_planes, dims,
+        config, frame_height, frame_width, shifted=False,
+    )
+    match = match_from_tracks(
+        kps.positions[None], late, tracked, prng.fold_in(key, state.step)[None], config
+    )
+    velocity = vertex_velocities(
+        match.early, match.late, match.inlier, match.homography, unstab_grid,
+        config, frame_height, frame_width,
+    )[0]
+
+    c_t = state.unstab_window[-1] + velocity
+    unstab_window = torch.cat([state.unstab_window[1:], c_t[None]])
+    lam = adaptive_weights(
+        match.homography, frame_width, frame_height, adaptive_weights_definition
+    )[0]
+
+    # Causal Gaussian weights over the last OMEGA committed frames: window
+    # slot i of past = stab_window[1:] holds p_{t-omega+i}, distance
+    # omega - i from the new frame, weight band[i]; slots before the
+    # stream's start are masked out.
+    band = gaussian_band(omega, device)
+    have = torch.arange(omega, device=device) >= max(omega - state.step - 1, 0)
+    wgt = torch.where(have, band[:omega], torch.zeros_like(band[:omega]))
+    denom = 1.0 + 2.0 * lam * wgt.sum()
+    weighted_past = (wgt[:, None, None, None] * state.stab_window[1:]).sum(0)
+    p_t = (c_t + 2.0 * lam * weighted_past) / denom
+
+    margin_x, margin_y = _online_margins(frame_width, frame_height, crop_ratio)
+    limit = torch.tensor([margin_x, margin_y], dtype=torch.float32, device=device)
+    p_t = c_t + torch.clamp(p_t - c_t, -limit, limit)
+
+    stab_window = torch.cat([state.stab_window[1:], p_t[None]])
+    new_state = OnlineState(cur_planes, cur_kps, unstab_window, stab_window, state.step + 1)
+    return new_state, c_t, p_t
+
+
+def online_step(
+    state: OnlineState,
+    frame: torch.Tensor,
+    key: torch.Tensor,
+    config: MeshFlowConfig,
+    frame_height: int,
+    frame_width: int,
+    adaptive_weights_definition: int = 0,
+    crop_ratio: float = 0.8,
+):
+    """One streaming step: (state, frame t) -> (new state, stabilized
+    frame (H, W, 3) uint8 on the frame's device)."""
+    device = frame.device
+    unstab_grid = grid.vertex_grid(config, frame_height, frame_width, device=device)
+    new_state, c_t, p_t = online_motion_solve(
+        state, frame, key, config, frame_height, frame_width,
+        adaptive_weights_definition, crop_ratio,
+    )
+    bmap = backward_map(
+        unstab_grid + (p_t - c_t), unstab_grid, config, frame_height, frame_width
+    )
+    stabilized = warp_frame(frame, bmap, config.color_outside_image_area_bgr)
+    crop = torch.as_tensor(online_crop_rect(frame_width, frame_height, crop_ratio), device=device)
+    return new_state, crop_resize_frame(stabilized, crop, frame_height, frame_width)
+
+
+class OnlineMeshFlowStabilizer:
+    """Streaming stabilizer: feed frames, get stabilized frames back with
+    one frame of latency (the first call returns the frame unchanged)."""
+
+    def __init__(
+        self,
+        config: MeshFlowConfig | None = None,
+        adaptive_weights_definition: int = 0,
+        crop_ratio: float = 0.8,
+        seed: int = 0,
+        device: str | torch.device | None = None,
+    ):
+        self.config = config or MeshFlowConfig()
+        if self.config.track_planes != "bgr":
+            raise NotImplementedError(
+                "track_planes='gray' needs a host renderer, which the port does not have"
+            )
+        self.adaptive_weights_definition = adaptive_weights_definition
+        self.crop_ratio = crop_ratio
+        self.device = torch.device(device if device is not None else default_device())
+        self._key = prng.PRNGKey(seed, device=self.device)
+        self._state: OnlineState | None = None
+        self._shape = None
+
+    def process(self, frame: np.ndarray) -> np.ndarray:
+        """frame: (H, W, 3) uint8 BGR -> stabilized (H, W, 3) uint8 BGR."""
+        h, w = frame.shape[:2]
+        device_frame = torch.as_tensor(np.ascontiguousarray(frame)).to(self.device)
+        if self._state is None:
+            self._state = initial_state(device_frame, self.config)
+            self._shape = (h, w)
+            return frame
+        if self._shape != (h, w):
+            raise ValueError("frame size changed mid-stream")
+        self._state, out = online_step(
+            self._state, device_frame, self._key, self.config, h, w,
+            self.adaptive_weights_definition, self.crop_ratio,
+        )
+        return out.cpu().numpy()

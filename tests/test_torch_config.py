@@ -134,7 +134,10 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None; sys.modules['cv2'] = None\n"
         "import meshflow_tpu_torch, torch\n"
         "from meshflow_tpu_torch import api, interop\n"
-        "from meshflow_tpu_torch.kernels import lk_cuda, bmap_cuda\n"
+        "from meshflow_tpu_torch.kernels import lk_cuda, bmap_cuda, lk_band_cuda, lk_fetch\n"
+        "from meshflow_tpu_torch import online, cli\n"
+        "from meshflow_tpu_torch.motion import trackscale\n"
+        "from meshflow_tpu_torch.utils import profiling\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
         "assert torch.backends.cudnn.allow_tf32 is False\n"
         "assert meshflow_tpu_torch.MeshFlowStabilizer is api.MeshFlowStabilizer\n"
@@ -146,3 +149,33 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """No silent CPU fallback: without a card, the default device fails
+    the way torch fails, and device="cpu" is the way to ask for the CPU."""
+    import torch
+
+    from meshflow_tpu_torch.api import MeshFlowStabilizer, default_device
+    from meshflow_tpu_torch.online import OnlineMeshFlowStabilizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert default_device() == "cuda"
+    if not torch.backends.cuda.is_built() or torch.cuda.device_count() == 0:
+        with pytest.raises((RuntimeError, AssertionError)):
+            MeshFlowStabilizer()
+        with pytest.raises((RuntimeError, AssertionError)):
+            OnlineMeshFlowStabilizer()
+    assert MeshFlowStabilizer(device="cpu").device.type == "cpu"
+    assert OnlineMeshFlowStabilizer(device="cpu").device.type == "cpu"
+
+
+def test_compute_metrics_env(monkeypatch):
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+
+    for value, want in (("0", False), (" Off ", False), ("FALSE", False), ("1", True)):
+        monkeypatch.setenv("MESHFLOW_COMPUTE_METRICS", value)
+        assert MeshFlowStabilizer(device="cpu").config.compute_metrics is want
+        assert MeshFlowStabilizer(device="cpu", compute_metrics=True).config.compute_metrics
+    monkeypatch.delenv("MESHFLOW_COMPUTE_METRICS")
+    assert MeshFlowStabilizer(device="cpu").config.compute_metrics

@@ -26,6 +26,7 @@ from meshflow_tpu.kernels import pyramid as jpyr
 from meshflow_tpu_torch.config import MeshFlowConfig
 from meshflow_tpu_torch.kernels import color, eig3, fast, homography, median, pyramid
 from meshflow_tpu_torch.utils import prng
+from test_torch_threads import two_torch_threads  # noqa: F401  (autouse)
 
 
 def _t(a):

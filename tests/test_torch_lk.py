@@ -26,6 +26,7 @@ from meshflow_tpu.kernels.pyramid import build_pyramid as jax_pyramid
 from meshflow_tpu_torch.kernels import lk_cuda
 from meshflow_tpu_torch.kernels.lk import reflect_pad_level
 from meshflow_tpu_torch.kernels.pyramid import build_pyramid, pyramid_shapes
+from test_torch_threads import two_torch_threads  # noqa: F401  (autouse)
 
 
 def _trackable_tiles(rng, f, s, c, th, tw, shifts):

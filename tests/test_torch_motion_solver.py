@@ -34,6 +34,7 @@ from meshflow_tpu_torch.motion import pipeline as tpipe
 from meshflow_tpu_torch.motion import propagate as tprop
 from meshflow_tpu_torch.solver import jacobi, weights
 from meshflow_tpu_torch.utils import grid, prng
+from test_torch_threads import two_torch_threads  # noqa: F401  (autouse)
 
 
 def _synthetic_clip(rng, num_frames=8, h=180, w=320, max_shift=12):

@@ -31,6 +31,8 @@ from meshflow_tpu.utils import grid as jgrid
 from meshflow_tpu_torch.config import MeshFlowConfig
 from meshflow_tpu_torch.kernels import bmap_cuda
 from meshflow_tpu_torch.render import stabilize as tr
+from test_torch_threads import two_torch_threads  # noqa: F401  (autouse)
+
 
 CASES = [
     (16, 48, 64, 1.5),   # default mesh density, mild warp

@@ -33,6 +33,8 @@ from meshflow_tpu_torch.config import MeshFlowConfig
 from meshflow_tpu_torch.motion import pipeline as tpipe
 from meshflow_tpu_torch.solver.jacobi import jacobi_smooth
 from meshflow_tpu_torch.solver.weights import adaptive_weights
+from test_torch_threads import two_torch_threads  # noqa: F401  (autouse)
+
 
 TINY = dict(
     mesh_row_count=8,
