@@ -30,11 +30,18 @@ From the root of a checkout, on a machine with one CUDA card:
    a 120-frame 640x360 clip, per-frame latency, launch counts, and a
    stabilized path smoother than the raw one;
 10. the main path on a small clip on the card and on the CPU (plain
-   versions), whose outputs must agree.
+   versions), whose outputs must agree;
+11. the probes: ``python -m meshflow_tpu_torch.probes`` with the six
+   probe kernels' launch counts set to 0 before it, then each probe
+   kernel against its plain version (bit for bit; probe D's fine select
+   with a random selection within 1e-5 relative), and probe F's error on
+   general float32 values.
 
 Each kernel's bound is the larger of its operations over the H100's
-float32 rate and its bytes over its memory rate; for the LK kernels the
-plain version counts the iterations the inputs need.  Prints one JSON
+float32 rate (TF32 tensor-core rate for probe F) and its bytes over its
+memory rate; for the LK kernels the plain version counts the iterations
+the inputs need.  Times, bounds and launches are per kernel launch (an LK
+track of 3 levels is 3 launches).  Prints one JSON
 line of the kernels' launches, errors, times and bounds, then the last
 line ``{"ok": true, "device": {...}}``.  Any failed check or error exits
 non-zero before that line.  Without a CUDA device, or without the
@@ -73,20 +80,13 @@ def check(cond, msg: str) -> None:
         fail(msg)
 
 
-def median_ms(fn, reps: int = 5) -> float:
-    """Median wall time of fn() over reps runs after one warm-up, each
-    ended by a device synchronize."""
-    import torch
+def device_ms(fn, launches: int = 5, batches: int = 5) -> float:
+    """Device ms per call of fn(), as every kernel time of this script is
+    taken: the probes' ``event_ms`` (CUDA events around `launches` calls
+    queued behind a spin kernel, median over `batches`)."""
+    from meshflow_tpu_torch.probes.__main__ import event_ms
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - start) * 1e3)
-    return sorted(times)[len(times) // 2]
+    return event_ms(fn, launches=launches, batches=batches)[0]
 
 
 class fetch_route:
@@ -130,8 +130,8 @@ def blurred_noise(rng, shape, passes: int = 2):
 
 
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the
-# tensor cores, and HBM3 bandwidth.  A kernel's bound is the larger of its
-# operations over the first and its bytes over the second.
+# tensor cores and HBM3 bandwidth.  A kernel's bound is the larger of its
+# operations over their rate and its bytes over the memory's.
 H100_F32_FLOPS = 67e12
 H100_HBM_BYTES = 3.35e12
 
@@ -264,13 +264,16 @@ def phase_kernel_a(device):
     kp, kst = run(lk_cuda.lk_level)
     pp, pst = run(lk_cuda.lk_level_plain)
     _, _, max_err, _ = lk_gates("kernel A", kp, kst, pp, pst, pts, valid, shifts)
-    ms = median_ms(lambda: run(lk_cuda.lk_level))
-    plain_ms = median_ms(lambda: run(lk_cuda.lk_level_plain))
+    ms = device_ms(lambda: run(lk_cuda.lk_level))
+    plain_ms = device_ms(lambda: run(lk_cuda.lk_level_plain), launches=1, batches=3)
     bound_ms, bound_by, stats = lk_bound(run, planes, 3)
-    print(f"kernel A: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}; {stats}) (3 levels, 8 pairs, 16 tiles 90x160x3, K 512)")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    levels = len(planes)
+    print(f"kernel A: one track ({levels} launches): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}; {stats}) (8 pairs, 16 tiles 90x160x3, K 512)")
+    print(f"kernel A per launch (track / {levels}): kernel {ms / levels:.4f} ms, plain "
+          f"{plain_ms / levels:.4f} ms, bound {bound_ms / levels:.4f} ms")
+    return {"max_abs_err": max_err, "ms": ms / levels, "plain_ms": plain_ms / levels,
+            "bound_ms": bound_ms / levels, "bound_by": bound_by, "library_ms": None}
 
 
 def phase_kernel_c(device):
@@ -307,23 +310,27 @@ def phase_kernel_c(device):
         same_as_a = bool(torch.equal(cp, ap)) and bool(torch.equal(cst, ast))
         print(f"kernel C {name}: corners and status bit-identical to kernel A: {same_as_a}")
         check(same_as_a, f"kernel C differs from kernel A ({name})")
-        ms = median_ms(band)
-        a_ms = median_ms(lambda: run(lk_cuda.lk_level))
-        plain_ms = median_ms(lambda: run(lk_cuda.lk_level_plain))
+        ms = device_ms(band)
+        a_ms = device_ms(lambda: run(lk_cuda.lk_level))
+        plain_ms = device_ms(lambda: run(lk_cuda.lk_level_plain), launches=1, batches=3)
         bound_ms, bound_by, stats = lk_bound(run, planes, 3)
         top, low = (
             lk_band_cuda.occupancy(3, patch, dims[lvl][0] + 2 * PAD, dims[lvl][1] + 2 * PAD)
             for patch, lvl in ((lk_band_cuda.PN_TOP, max_level), (lk_band_cuda.PN_LOWER, 0))
         )
+        levels = max_level + 1
         print(
-            f"kernel C {name}: kernel C {ms:.3f} ms, kernel A {a_ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {stats}); "
-            f"{max_level + 1} levels, {pairs} pairs, 16 tiles {th}x{tw}x3, K 512; "
+            f"kernel C {name}: one track ({levels} launches): kernel C {ms:.3f} ms, kernel A "
+            f"{a_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{stats}); {pairs} pairs, 16 tiles {th}x{tw}x3, K 512; "
             f"warps/SM, shared B/block: C top {top}, C lower {low}, A {lk_cuda.occupancy()}"
         )
+        print(f"kernel C {name} per launch (track / {levels}): kernel C {ms / levels:.4f} ms, "
+              f"kernel A {a_ms / levels:.4f} ms, plain {plain_ms / levels:.4f} ms, bound "
+              f"{bound_ms / levels:.4f} ms")
         out["max_abs_err"] = max(out["max_abs_err"], max_err)
-        out[name] = {"ms": ms, "a_ms": a_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
+        out[name] = {"ms": ms / levels, "a_ms": a_ms / levels, "plain_ms": plain_ms / levels,
+                     "bound_ms": bound_ms / levels, "bound_by": bound_by}
     main = out["640x360"]  # the tiles the 1080p path tracks at d=3
     out.update(ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                bound_by=main["bound_by"], library_ms=None)
@@ -365,8 +372,9 @@ def phase_kernel_b(device):
             (kb.map_y - pb.map_y)[cov].abs().max().item(),
         )
         edges_equal = bool(torch.equal(crop_edges(kb, h, w), crop_edges(pb, h, w)))
-        ms = median_ms(lambda: bmap_cuda.backward_map(stab, unstab, config, h, w))
-        plain_ms = median_ms(lambda: bmap_cuda.backward_map_plain(stab, unstab, config, h, w))
+        ms = device_ms(lambda: bmap_cuda.backward_map(stab, unstab, config, h, w))
+        plain_ms = device_ms(lambda: bmap_cuda.backward_map_plain(stab, unstab, config, h, w),
+                             launches=1, batches=3)
         print(
             f"kernel B {name}: covered equal {cov_equal} "
             f"(uncovered {int((~cov).sum())} px), max map err {err:.3g}, "
@@ -655,6 +663,178 @@ def phase_small_agreement(device):
     check(max(rel) <= 1e-2, f"card vs CPU metrics differ by {rel}")
 
 
+def tf32_round(x):
+    """x rounded to TF32 as cvt.rna does: 10 mantissa bits, ties away."""
+    import torch
+
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+# The probe kernels of the kernels line: name -> (CUDA source in csrc/,
+# the case the line reports, the Pallas kernel it replaces)
+PROBE_KERNELS = {
+    "dynslice_copy": ("probe_dynslice_fetch.cu", "B=16", "scripts/probe_dynslice_fetch.py:40"),
+    "dynslice_fine": ("probe_dynslice_fetch.cu", "B=16", "scripts/probe_dynslice_fetch.py:57"),
+    "onehot_rowsel": ("probe_dynslice_fetch.cu", "B=16", "scripts/probe_dynslice_fetch.py:81"),
+    "aligned_dynslice": ("probe_aligned_dynslice.cu", "r0=37",
+                         "scripts/probe_aligned_dynslice.py:34"),
+    "select_rows": ("probe_select_rows.cu", "rows=432", "scripts/probe_select_rows.py:39"),
+    "scalar_from_vmem": ("probe_scalar_from_vmem.cu", "B=8",
+                         "scripts/probe_scalar_from_vmem.py:35"),
+}
+
+
+def probe_bound(kernel, case):
+    """(bound_ms, bound_by) of one probe launch on the entry point's inputs
+    for `case`: the float32 elements its outputs depend on read once, each
+    output written once, and the float operations the outputs need.  A D
+    launch runs 50 rounds, but the results of copy and fine are the last
+    round's, so their bound is one round's; one-hot's sum needs every
+    round's 8 x 128 corner and the last round's band.  Fine's operations
+    are two per nonzero of rsel and band column; the selects (E, F, G's
+    row) need none."""
+    import torch
+
+    from meshflow_tpu_torch.probes import (
+        aligned_dynslice as e,
+        dynslice_fetch as d,
+        scalar_from_vmem as g,
+        select_rows as f,
+    )
+    from meshflow_tpu_torch.probes._slices import dyn_start
+
+    n = int(case.split("=")[1])
+    if kernel in ("dynslice_copy", "dynslice_fine", "onehot_rowsel"):
+        idx, plane = d.probe_inputs(n)
+        h, w = plane.shape
+        read = torch.zeros(h, w, dtype=torch.bool)
+        out = 8 * 128
+        if kernel == "onehot_rowsel":
+            for r in range(d.REPS):
+                t = idx[0].long() + r % 4 + torch.arange(8)
+                read[t[t < h], :128] = True
+            t = idx[0].long() + (d.REPS - 1) % 4 + torch.arange(n * d.PN) % d.PN
+            read[t[t < h]] = True
+            elems = int(read.sum()) + 1 + out + n * d.PN * w  # plane, idx[0], out, band
+            return bound((d.REPS - 1) * out, 4 * elems)
+        read[d.band_index(idx, d.REPS - 1, h, w)] = True
+        elems = int(read.sum()) + idx.numel() + out + n * d.BAND_R * d.BAND_C
+        if kernel == "dynslice_copy":
+            return bound(0, 4 * elems)
+        rsel = d.one_hot_rsel(n)
+        elems += rsel.numel() + n * d.PN * d.BAND_C  # rsel, rows
+        return bound(2 * int((rsel != 0).sum()) * d.BAND_C, 4 * elems)
+    if kernel == "aligned_dynslice":
+        return bound(0, 4 * (1 + 2 * e.ROWS * e.W))  # r0, 16 plane rows, out
+    if kernel == "select_rows":
+        table, cells = f.probe_inputs(n)
+        rows, picks = table.shape[0], cells.numel()
+        return bound(0, 4 * (rows * cells.unique().numel() + picks + rows * picks))
+    plane, corners = g.probe_inputs()  # scalar_from_vmem
+    base = torch.div(torch.floor(2 * corners[:, 0] + 1).long(), 8, rounding_mode="floor") * 8
+    rows = dyn_start(base, g.H, 16).unique().numel()
+    return bound(2 * n, 4 * (n + rows * g.W + n * g.W))  # corners[:, 0], rows, out
+
+
+def phase_probes(device):
+    """The probe entry point (``python -m meshflow_tpu_torch.probes``) on
+    the card with the six probe kernels' counts set to 0 before it and
+    read after it; then, with launches of their own, each kernel against
+    its plain version under the gates: bit-equal at the probes' sizes and
+    at clamped and wrapped starts, D's fine select with a random selection
+    matrix within 1e-5 relative.  Prints, ungated, F's error on a table of
+    general float32 values with 1, 2 and 3 TF32 pieces."""
+    import numpy as np
+    import torch
+
+    from meshflow_tpu_torch.probes import __main__ as entry
+    from meshflow_tpu_torch.probes import (
+        aligned_dynslice as e,
+        dynslice_fetch as d,
+        scalar_from_vmem as g,
+        select_rows as f,
+    )
+
+    wrappers = {
+        "dynslice_copy": d.dynslice_copy, "dynslice_fine": d.dynslice_fine,
+        "onehot_rowsel": d.onehot_rowsel, "aligned_dynslice": e.aligned_rows,
+        "select_rows": f.select_rows, "scalar_from_vmem": g.band_row,
+    }
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    results = entry.run(entry.PROBES, device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {name: w.launches for name, w in wrappers.items()}
+    print(f"probes: entry point {seconds:.3f} s; launches {launches}")
+    check(all(n > 0 for n in launches.values()), f"a probe kernel never ran: {launches}")
+    for r in results:
+        check(r["ok"], f"probe {r['kernel']} {r['case']}: kernel differs from plain "
+                       f"(max abs err {r['max_abs_err']}) or the probe's answer is WRONG")
+    err = {name: 0.0 for name in PROBE_KERNELS}
+
+    # clamped and wrapped starts, bit-equal; D's fine select with a random rsel
+    rng = np.random.default_rng(SEED)
+    for b in d.SIZES:
+        idx, plane = (t.to(device) for t in d.probe_inputs(b))
+        idx[:4] = torch.tensor([320, 640, -16, -100], dtype=torch.int32, device=device)
+        for name in ("dynslice_copy", "onehot_rowsel"):
+            got, want = getattr(d, name)(idx, plane), getattr(d, name + "_plain")(idx, plane)
+            check(all(torch.equal(x, y) for x, y in zip(got, want)), f"{name} B={b} differs")
+        rsel = torch.from_numpy(rng.random((b, d.PN, d.BAND_R), np.float32)).to(device)
+        got, want = d.dynslice_fine(idx, plane, rsel), d.dynslice_fine_plain(idx, plane, rsel)
+        rel = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
+        err["dynslice_fine"] = max(err["dynslice_fine"], (got[2] - want[2]).abs().max().item())
+        print(f"probe D fine B={b}, random rsel: max rel err {rel:.3e}, bands equal "
+              f"{torch.equal(got[1], want[1])}")
+        check(torch.equal(got[1], want[1]) and rel <= 1e-5, f"dynslice_fine B={b} rel err {rel}")
+    plane, _ = (t.to(device) for t in e.probe_inputs())
+    for row in (0, 7, 233, 239, 240, 250, 255, -3):
+        r0 = torch.tensor([row], dtype=torch.int32, device=device)
+        check(torch.equal(e.aligned_rows(plane, r0), e.aligned_rows_plain(plane, r0)),
+              f"aligned_dynslice r0={row} differs")
+    plane, _ = (t.to(device) for t in g.probe_inputs())
+    corners = g.corners_from([0.0, 3.7, 20.0, 24.0, 27.0, 31.4, -1.2, 10.0]).to(device)
+    check(torch.equal(g.band_row(plane, corners), g.band_row_plain(plane, corners)),
+          "scalar_from_vmem differs at clamped and wrapped bases")
+
+    # F on general float32 values: the error of 1, 2 and 3 TF32 pieces
+    table = torch.from_numpy(rng.normal(0, 1, (432, f.CELLS_PAD)).astype(np.float32)).to(device)
+    _, cells = (t.to(device) for t in f.probe_inputs(432))
+    want = f.select_rows_plain(table, cells)
+    rest, total, pieces = table, torch.zeros_like(want), []
+    for n in (1, 2, 3):  # the kernel rounds each piece to TF32 itself
+        total = total + f.select_rows(rest, cells)
+        rest = rest - tf32_round(rest)
+        exact, bad, size, rel = f.select_report(total, want)
+        pieces.append(f"{n} piece(s): exact={exact} bad={bad}/{size} max rel err={rel:.3e}")
+    print("probe F on general float32 (432 rows, ungated): " + "; ".join(pieces))
+
+    out = {}
+    for name, (_, case, replaces) in PROBE_KERNELS.items():
+        rows = [r for r in results if r["kernel"] == name]
+        for r in rows:
+            bms, by = probe_bound(name, r["case"])
+            library = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
+            per_round = (f" ({r['ms'] / d.REPS:.6f} ms per round)"
+                         if name in ("dynslice_copy", "dynslice_fine") else "")
+            print(f"probe {name} {r['case']}: kernel {r['ms']:.5f} ms{per_round} (host enqueue "
+                  f"{r['host_ms']:.5f} ms), plain {r['plain_ms']:.5f} ms, library {library}, "
+                  f"bound {bms:.6f} ms ({by}), max abs err {r['max_abs_err']}")
+        main = next(r for r in rows if r["case"] == case)
+        bms, by = probe_bound(name, case)
+        out[name] = {
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max([err[name]] + [r["max_abs_err"] for r in rows]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": main["library_ms"],
+        }
+    return out
+
+
 def tree_run(tree: Path, warm_passes: int = 3) -> int:
     """Kernel A on step 3's inputs and the 640x360 main path, with the
     package imported from the checkout in `tree`: one JSON line of output
@@ -750,7 +930,11 @@ def main() -> int:
     from meshflow_tpu_torch.kernels import _build
 
     info = _build.build()
-    print(f"build: {info['seconds']:.2f} s -> {info['path']}")
+    start = time.perf_counter()
+    _build.library_path()
+    hash_ms = (time.perf_counter() - start) * 1e3
+    print(f"build: {info['seconds']:.2f} s -> {info['path']}; hashing the sources "
+          f"{hash_ms:.3f} ms (done once per process, at the first launch)")
     for line in info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print(f"  ptxas {line.strip()}")
@@ -766,6 +950,7 @@ def main() -> int:
     phase_1080p_control(device, first_block, pan=360 * (64 - 1) / (300 - 1))
     phase_online(device)
     phase_small_agreement(device)
+    probes = phase_probes(device)
 
     kernels = [
         {"name": "lk_level", "route": "cuda",
@@ -782,6 +967,10 @@ def main() -> int:
          "launches": launches_1080p["lk_band"],
          **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms")}},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": f"meshflow_tpu_torch/csrc/{PROBE_KERNELS[name][0]}", **row}
+        for name, row in probes.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,11 @@ The sources are compiled with nvcc into one shared library with a plain C
 interface and bound with ctypes; the library is built at the first kernel
 launch of a process, into ``build/meshflow_tpu_torch/<hash>/`` at the root
 of the checkout, keyed by a hash of the sources and flags, so a changed
-source always rebuilds and an unchanged one is built once.
+source always rebuilds and an unchanged one is built once.  Each ``.cu``
+file is compiled by its own nvcc process, all started together, and the
+objects are then linked into the library.  A process loads the library
+once, at its first launch, and keeps it: hashing the sources at every
+launch cost each launch about a millisecond of host time.
 
 Flags: ``sm_90a`` (Hopper); ``--fmad=false`` so no multiply-add is
 contracted and every float operation rounds where the plain PyTorch
@@ -16,6 +20,7 @@ version's exactly); IEEE division and square root (``-prec-div=true
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -28,12 +33,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "meshflow_tpu_torch
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 _LIB_NAME = "libmeshflow_kernels.so"
-
-_loaded: dict = {}
 
 
 def _nvcc() -> str:
@@ -70,52 +72,83 @@ def build() -> dict:
         return {"path": str(out), "seconds": 0.0, "log": ""}
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
+    tag = f"{os.getpid()}.tmp"
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    objects, procs = [], []
+    tmp = out.with_name(f"{_LIB_NAME}.{tag}")
+    try:
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            obj = out.with_name(f"{src.stem}.{tag}.o")  # nvcc links by the .o suffix
+            objects.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        log = ""
+        for proc in procs:
+            log += proc.communicate()[0]
+        failed = [p.args[-1] for p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objects)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    os.replace(tmp, out)
-    return {"path": str(out), "seconds": seconds, "log": proc.stdout + proc.stderr}
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}")
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:  # an exception above leaves no compiler running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in objects + [tmp]:
+            path.unlink(missing_ok=True)
+    seconds = time.perf_counter() - start
+    return {"path": str(out), "seconds": seconds, "log": log + link.stdout}
 
 
+@functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed), argtypes set."""
-    path = str(build()["path"])
-    lib = _loaded.get(path)
-    if lib is None:
-        lib = ctypes.CDLL(path)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.meshflow_lk_level.argtypes = [
-            p, p, p, p, p, p, p, p,  # prev, next, pts, guess, valid, st, out, st_out
-            i, i, i, i,  # T, S, K, C
-            i, i, i, i,  # hpad, wpad, rows, cols
-            i, i, f, f, i,  # shift, max_iters, eps2, min_eig_thr, is_level0
-            p,  # stream
-        ]
-        lib.meshflow_lk_level.restype = i
-        lib.meshflow_lk_band.argtypes = lib.meshflow_lk_level.argtypes[:-1] + [
-            i,  # pn: staged patch size
-            p,  # stream
-        ]
-        lib.meshflow_lk_band.restype = i
-        ip = ctypes.POINTER(ctypes.c_int)
-        lib.meshflow_lk_level_occupancy.argtypes = [ip, ip]
-        lib.meshflow_lk_level_occupancy.restype = i
-        lib.meshflow_lk_band_occupancy.argtypes = [i, i, i, i, ip, ip]
-        lib.meshflow_lk_band_occupancy.restype = i
-        lib.meshflow_bmap.argtypes = [
-            p, p, p, p,  # table, map_x, map_y, covered
-            i, i, i, i, i,  # F, H, W, rows, cols
-            p,  # stream
-        ]
-        lib.meshflow_bmap.restype = i
-        _loaded[path] = lib
+    """The process's kernel library (built and loaded at the first call),
+    argtypes set."""
+    lib = ctypes.CDLL(str(build()["path"]))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.meshflow_lk_level.argtypes = [
+        p, p, p, p, p, p, p, p,  # prev, next, pts, guess, valid, st, out, st_out
+        i, i, i, i,  # T, S, K, C
+        i, i, i, i,  # hpad, wpad, rows, cols
+        i, i, f, f, i,  # shift, max_iters, eps2, min_eig_thr, is_level0
+        p,  # stream
+    ]
+    lib.meshflow_lk_level.restype = i
+    lib.meshflow_lk_band.argtypes = lib.meshflow_lk_level.argtypes[:-1] + [
+        i,  # pn: staged patch size
+        p,  # stream
+    ]
+    lib.meshflow_lk_band.restype = i
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.meshflow_lk_level_occupancy.argtypes = [ip, ip]
+    lib.meshflow_lk_level_occupancy.restype = i
+    lib.meshflow_lk_band_occupancy.argtypes = [i, i, i, i, ip, ip]
+    lib.meshflow_lk_band_occupancy.restype = i
+    lib.meshflow_bmap.argtypes = [
+        p, p, p, p,  # table, map_x, map_y, covered
+        i, i, i, i, i,  # F, H, W, rows, cols
+        p,  # stream
+    ]
+    lib.meshflow_bmap.restype = i
+    # probes D-G (csrc/probe_*.cu); every entry point ends with the stream
+    for name, args in {
+        "meshflow_probe_dynslice_copy": [p, p, p, p, i, i, i, i],
+        "meshflow_probe_dynslice_fine": [p, p, p, p, p, p, i, i, i, i],
+        "meshflow_probe_onehot_rowsel": [p, p, p, p, i, i, i, i],
+        "meshflow_probe_aligned_dynslice": [p, p, p, i, i],
+        "meshflow_probe_select_rows": [p, p, p, i, i, i],
+        "meshflow_probe_scalar_from_vmem": [p, p, p, i, i, i, i],
+    }.items():
+        getattr(lib, name).argtypes = args + [p]
+        getattr(lib, name).restype = i
     return lib
 
 

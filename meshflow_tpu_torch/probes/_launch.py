@@ -1,0 +1,45 @@
+"""What every probe wrapper does around its kernel: the routing test, the
+checks of its CUDA tensors, and the call of its C entry point."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from meshflow_tpu_torch.kernels import _build
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU: the wrapper then takes its
+    plain version."""
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def require(name: str, *specs) -> torch.device:
+    """Raise ValueError unless every (tensor, dtype, shape) of `specs` lies
+    on one CUDA device with that dtype and shape, contiguous and 16-byte
+    aligned (the kernels load 16 bytes at a time).  Returns the device."""
+    device = specs[0][0].device
+    for t, dtype, shape in specs:
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{name}: tensors must be on one CUDA device, got {t.device}")
+        if (
+            t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.data_ptr() % 16
+        ):
+            raise ValueError(
+                f"{name}: expected a contiguous, 16-byte aligned {dtype} tensor of "
+                f"shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)}"
+            )
+    return device
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the library's C entry point `entry` with tensors passed as
+    pointers and the rest as ints, on the current stream; raise if it
+    returns a CUDA error."""
+    conv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else int(a)
+            for a in args]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    _build.check(getattr(_build.library(), entry)(*conv, stream), entry)

@@ -14,7 +14,11 @@ LK kernels sum their windows in another order than the plain version
 from a staged copy of the same bytes, so the two are bit-identical; the
 backward-map kernel performs the plain version's float
 operations in the same order without contraction, so coverage and crop
-edges are equal and maps within 1e-4 px.
+edges are equal and maps within 1e-4 px.  The probe kernels (D-G) move
+or select values without arithmetic, or (D's fine select) sum in the plain
+version's order without contraction, so they equal their plain versions
+bit for bit; D's fine select with a random selection matrix within 1e-5
+relative.
 """
 
 import numpy as np
@@ -25,6 +29,7 @@ from meshflow_tpu_torch.config import MeshFlowConfig
 from meshflow_tpu_torch.kernels import _build, bmap_cuda, lk_band_cuda, lk_cuda
 from meshflow_tpu_torch.kernels.lk import reflect_pad_level
 from meshflow_tpu_torch.kernels.pyramid import build_pyramid, pyramid_shapes
+from meshflow_tpu_torch.probes import aligned_dynslice, dynslice_fetch, scalar_from_vmem, select_rows
 from meshflow_tpu_torch.render.stabilize import crop_edges
 from meshflow_tpu_torch.utils import grid
 
@@ -70,6 +75,33 @@ def test_wrappers_raise_for_tensors_off_cpu_and_cuda():
     assert lk_cuda.lk_level.launches == 0 and bmap_cuda.backward_map.launches == 0
 
 
+def test_probe_wrappers_route_by_device():
+    """CPU tensors take the plain version without a launch; tensors on
+    another device raise instead of falling back."""
+    idx, plane = dynslice_fetch.probe_inputs(4)
+    rsel = dynslice_fetch.one_hot_rsel(4)
+    table, cells = select_rows.probe_inputs(48, bp=64)
+    e_plane, r0 = aligned_dynslice.probe_inputs()
+    g_plane, corners = scalar_from_vmem.probe_inputs()
+    d, e, f, g = dynslice_fetch, aligned_dynslice, select_rows, scalar_from_vmem
+    calls = [
+        (d.dynslice_copy, d.dynslice_copy_plain, (idx, plane, 2)),
+        (d.dynslice_fine, d.dynslice_fine_plain, (idx, plane, rsel, 2)),
+        (d.onehot_rowsel, d.onehot_rowsel_plain, (idx, plane, 2)),
+        (e.aligned_rows, e.aligned_rows_plain, (e_plane, r0)),
+        (f.select_rows, f.select_rows_plain, (table, cells)),
+        (g.band_row, g.band_row_plain, (g_plane, corners)),
+    ]
+    for fn, plain, args in calls:
+        got, want = fn(*args), plain(*args)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(a, b), fn.__name__
+        with pytest.raises(ValueError):
+            fn(*(a.to("meta") if isinstance(a, torch.Tensor) else a for a in args))
+        assert fn.launches == 0, fn.__name__
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "lib.so")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
@@ -79,14 +111,36 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "lib.so").exists()
 
 
+@pytest.mark.parametrize("fails", ["compile", "link"])
+def test_failed_build_leaves_no_temporary_files(monkeypatch, tmp_path, fails):
+    """A stand-in nvcc writes its output, then fails on one source (or at
+    the link): build() raises and removes every object and partial library."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        'out=""; prev=""\n'
+        'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done\n'
+        ': > "$out"\n'
+        f'case "$*" in *{"bmap.cu" if fails == "compile" else "-shared"}*) exit 1;; esac\n'
+    )
+    nvcc.chmod(0o755)
+    lib = tmp_path / "build" / "lib.so"
+    monkeypatch.setattr(_build, "library_path", lambda: lib)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    with pytest.raises(RuntimeError, match="link failed" if fails == "link" else "nvcc failed"):
+        _build.build()
+    assert list(lib.parent.iterdir()) == []
+
+
 def test_build_key_follows_sources():
     path = _build.library_path()
     assert path == _build.library_path()
     assert path.parent.parent == _build.BUILD_ROOT
     assert sorted(p.name for p in _build.SRC_DIR.glob("*.cu")) == [
-        "bmap.cu", "lk_band.cu", "lk_level.cu"
+        "bmap.cu", "lk_band.cu", "lk_level.cu", "probe_aligned_dynslice.cu",
+        "probe_dynslice_fetch.cu", "probe_scalar_from_vmem.cu", "probe_select_rows.cu",
     ]
-    assert [p.name for p in _build.SRC_DIR.glob("*.cuh")] == ["lk_common.cuh"]
+    assert sorted(p.name for p in _build.SRC_DIR.glob("*.cuh")) == ["lk_common.cuh", "probes.cuh"]
 
 
 @pytest.mark.cuda
@@ -157,3 +211,61 @@ def test_bmap_kernel_matches_plain_on_card(mesh, h, w, scale):
     batch = torch.stack([stab, unstab + 0.5 * (stab - unstab)])
     kbb = bmap_cuda.backward_map(batch, unstab, config, h, w)
     assert torch.equal(kbb.covered[0], kb.covered) and torch.equal(kbb.map_x[0], kb.map_x)
+
+
+def _equal(got, want):
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [4, 16])
+def test_probe_d_kernels_match_plain_on_card(b):
+    dev = _card()
+    idx, plane = (t.to(dev) for t in dynslice_fetch.probe_inputs(b))
+    idx[:4] = torch.tensor([320, 640, -16, -100], dtype=torch.int32)  # clamped and wrapped
+    d = dynslice_fetch
+    before = (d.dynslice_copy.launches, d.dynslice_fine.launches, d.onehot_rowsel.launches)
+    assert _equal(d.dynslice_copy(idx, plane, 5), d.dynslice_copy_plain(idx, plane, 5))
+    rsel = d.one_hot_rsel(b, seed=1).to(dev)
+    assert _equal(d.dynslice_fine(idx, plane, rsel, 5), d.dynslice_fine_plain(idx, plane, rsel, 5))
+    rsel = torch.from_numpy(np.random.default_rng(1).random((b, d.PN, d.BAND_R), np.float32)).to(dev)
+    got, want = d.dynslice_fine(idx, plane, rsel, 5), d.dynslice_fine_plain(idx, plane, rsel, 5)
+    assert torch.equal(got[1], want[1])
+    assert ((got[2] - want[2]).abs() / want[2].abs()).max().item() <= 1e-5
+    for first in (idx[0].item(), 300):
+        idx[0] = first  # 300: rows past the plane select zeros
+        assert _equal(d.onehot_rowsel(idx, plane, 5), d.onehot_rowsel_plain(idx, plane, 5))
+    torch.cuda.synchronize()
+    assert (d.dynslice_copy.launches, d.dynslice_fine.launches, d.onehot_rowsel.launches) == (
+        before[0] + 1, before[1] + 2, before[2] + 2
+    )
+
+
+@pytest.mark.cuda
+def test_probe_e_kernel_matches_plain_on_card():
+    dev = _card()
+    plane, _ = (t.to(dev) for t in aligned_dynslice.probe_inputs())
+    for row in (0, 7, 37, 233, 239, 240, 250, 255, -3):
+        r0 = torch.tensor([row], dtype=torch.int32, device=dev)
+        got = aligned_dynslice.aligned_rows(plane, r0)
+        assert torch.equal(got, aligned_dynslice.aligned_rows_plain(plane, r0)), row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrows", [48, 144, 432])
+def test_probe_f_kernel_is_exact_on_card(nrows):
+    dev = _card()
+    table, cells = (t.to(dev) for t in select_rows.probe_inputs(nrows))
+    cells[0, :3] = torch.tensor([-1, 256, 255], dtype=torch.int32)  # outside the table: zeros
+    got = select_rows.select_rows(table, cells)
+    assert torch.equal(got, select_rows.select_rows_plain(table, cells))
+
+
+@pytest.mark.cuda
+def test_probe_g_kernel_matches_plain_on_card():
+    dev = _card()
+    plane, _ = (t.to(dev) for t in scalar_from_vmem.probe_inputs())
+    corners = scalar_from_vmem.corners_from([0.0, 3.7, 20.0, 24.0, 27.0, 31.4, -1.2, 10.0]).to(dev)
+    got = scalar_from_vmem.band_row(plane, corners)
+    assert torch.equal(got, scalar_from_vmem.band_row_plain(plane, corners))
+    assert torch.equal(got[:, 0], plane[[0, 8, 40, 48, 48, 48, 48, 16]])
