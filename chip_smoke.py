@@ -8,16 +8,21 @@ From the root of a checkout, on a machine with one CUDA card:
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the CUDA kernels from ``meshflow_tpu_torch/csrc`` (nvcc, sm_90a);
 3. kernel A (LK level): the kernel against its plain PyTorch version on
-   the card, at the main path's shapes (16 tiles of 90x160, 3 channels,
-   512 slots, 3 levels, 8 pairs of textured tiles with known shifts);
+   the card, on textured tiles with known shifts at the main path's tile
+   shapes (16 tiles of 90x160, 3 channels, 512 slots, 3 levels): 8 pairs
+   (the earlier kernel table's case) and the main path's launches, a
+   63-pair motion block, a 64-frame metric block (shifted=False) and a
+   1-pair online step; device time per launch beside the plain version's
+   and the bound, and the launch shape (warps per SM, registers);
 4. kernel B (backward map): the kernel against its plain version on a
    64-frame 640x360 block with a 16x16 mesh (the main path's launch),
    and on single frames with a heavy warp and at 1920x1080 with a 64x64
    mesh;
 5. kernel C (LK level, staged footprint): against the plain version and
-   bit for bit against kernel A, at the 640x360 tiles and at 1080p
-   track_downscale=1 tiles (16 of 270x480, 4 levels, shifts to +-20 px),
-   with the warps per SM of both kernels;
+   bit for bit against kernel A, at the 640x360 tiles (8 pairs and the
+   63-pair motion block) and at 1080p track_downscale=1 tiles (16 of
+   270x480, 4 levels, shifts to +-20 px), with the launch shapes of both
+   kernels;
 6. the main path: ``MeshFlowStabilizer(device="cuda")._stabilize_frames``
    on a synthetic 300-frame 640x360 clip (seeded texture, smooth pan and
    per-frame jitter), cold then warm, with every kernel's launch count;
@@ -41,7 +46,8 @@ Each kernel's bound is the larger of its operations over the H100's
 float32 rate (TF32 tensor-core rate for probe F) and its bytes over its
 memory rate; for the LK kernels the plain version counts the iterations
 the inputs need.  Times, bounds and launches are per kernel launch (an LK
-track of 3 levels is 3 launches).  Prints one JSON
+track of 3 levels is 3 launches); an LK kernel's `ms` is at the main
+path's motion launch, `ms_8_pairs` at the 8-pair case.  Prints one JSON
 line of the kernels' launches, errors, times and bounds, then the last
 line ``{"ok": true, "device": {...}}``.  Any failed check or error exits
 non-zero before that line.  Without a CUDA device, or without the
@@ -51,10 +57,11 @@ package beside this file, it exits non-zero and prints no result.
 
 times another checkout of the repo (DIR, for example an earlier commit
 unpacked with ``git archive``) against this one on the same card: kernel
-A on the inputs of step 3 and the 640x360 main path (cold, then three
-warm passes), each tree in a process of its own, in the order DIR, this,
-this, DIR.  It checks that both trees give the same bytes and prints the
-times.
+A on the 8-pair inputs of step 3, kernels A and C per launch at step 3's
+cases, and the 640x360 main path (cold, then three warm passes), each
+tree in a process of its own, in the order DIR, this, this, DIR.  It
+checks that both trees give the same bytes (kernel A's track and the main
+path's output) and prints the times.
 """
 
 from __future__ import annotations
@@ -152,33 +159,6 @@ def bound(ops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def lk_bound(track, planes, channels):
-    """Bound of one coarse-to-fine track: the plain version counts the
-    steps these inputs need, level by level; the planes are read once, the
-    slots' inputs and outputs once per level."""
-    import torch
-
-    from meshflow_tpu_torch.kernels.lk import WIN, lk_level_plain
-
-    stats = {"setups": 0, "iters": 0, "slot_bytes": 0}
-
-    def counting(*args, **kwargs):
-        corner, status, iters = lk_level_plain(*args, **kwargs, return_iters=True)
-        valid = args[4]
-        stats["setups"] += int(valid.sum())
-        stats["iters"] += int(iters.sum())
-        stats["slot_bytes"] += valid.numel() * (2 * 8 + 2 + 9)
-        return corner, status
-
-    track(counting)
-    torch.cuda.synchronize()
-    setup = channels * (LK_SCHARR_OPS * (WIN + 1) ** 2 + LK_SETUP_OPS * WIN * WIN)
-    ops = stats["setups"] * setup + stats["iters"] * channels * WIN * WIN * LK_ITER_OPS
-    nbytes = sum(p.numel() for p in planes) + stats["slot_bytes"]
-    ms, by = bound(ops, nbytes)
-    return ms, by, stats
-
-
 def lk_case(device, pairs, th, tw, max_level, max_shift, seed):
     """Seeded textured tiles with known integer shifts: 16 tiles, C=3,
     512 slots; returns (planes, dims, pts, valid, shifts).  The canvas and
@@ -218,6 +198,71 @@ def lk_case(device, pairs, th, tw, max_level, max_shift, seed):
     return planes, dims, pts, valid, shifts
 
 
+class LkCase:
+    """One LK track on `lk_case` inputs (16 tiles x 3 channels x 512 slots
+    a pair): `pairs` adjacent pairs (shifted=True, as a motion block), or
+    with shifted=False frame t of the first pyramid against frame t of a
+    second (here frames 1.. of the same tiles), started at init_pts, as a
+    metric block's launch.  A track is `levels` launches."""
+
+    def __init__(self, device, name, pairs, shifted=True, th=90, tw=160, max_level=2,
+                 max_shift=6, seed=SEED):
+        self.name, self.shifted, self.levels = name, shifted, max_level + 1
+        self.shape = f"{pairs} pairs, 16 tiles {th}x{tw}x3, K 512, {self.levels} levels" + (
+            "" if shifted else ", shifted=False, init_pts")
+        (self.planes, self.dims, self.pts, self.valid,
+         self.shifts) = lk_case(device, pairs, th, tw, max_level, max_shift, seed)
+        self.plain = None  # (corners, status, bound_ms, bound_by, stats), from lk_plain
+
+    def track(self, level_fn=None):
+        """The track with `level_fn` at every level (None: the kernel that
+        MESHFLOW_LK_FETCH names)."""
+        from meshflow_tpu_torch.kernels import lk_cuda
+
+        p = self.planes
+        if self.shifted:
+            return lk_cuda.lk_track_pairs(p, self.dims, self.pts, self.valid, level_fn=level_fn)
+        pts = self.pts[:-1]
+        return lk_cuda.lk_track_parallel(
+            tuple(x[:-1] for x in p), tuple(x[1:] for x in p), self.dims, pts,
+            self.valid[:-1], init_pts=pts, level_fn=level_fn,
+        )
+
+
+def lk_plain(case):
+    """The plain track of `case` and the bound of one of its launches, kept
+    on the case: the plain version counts the steps these inputs need,
+    level by level; the planes are read once, the slots' inputs and outputs
+    once per level.  Returns (corners, status, bound_ms, bound_by, stats),
+    stats per launch (setups, steps)."""
+    import torch
+
+    from meshflow_tpu_torch.kernels.lk import WIN, lk_level_plain
+
+    if case.plain is not None:
+        return case.plain
+    stats = {"setups": 0, "iters": 0, "slot_bytes": 0}
+
+    def counting(*args, **kwargs):
+        corner, status, iters = lk_level_plain(*args, **kwargs, return_iters=True)
+        valid = args[4]
+        stats["setups"] += int(valid.sum())
+        stats["iters"] += int(iters.sum())
+        stats["slot_bytes"] += valid.numel() * (2 * 8 + 2 + 9)
+        return corner, status
+
+    pp, pst = case.track(counting)
+    torch.cuda.synchronize()
+    channels = case.planes[0].shape[2]
+    setup = channels * (LK_SCHARR_OPS * (WIN + 1) ** 2 + LK_SETUP_OPS * WIN * WIN)
+    ops = stats["setups"] * setup + stats["iters"] * channels * WIN * WIN * LK_ITER_OPS
+    nbytes = sum(p.numel() for p in case.planes) + stats["slot_bytes"]
+    ms, by = bound(ops / case.levels, nbytes / case.levels)
+    per_launch = {key: stats[key] / case.levels for key in ("setups", "iters")}
+    case.plain = (pp, pst, ms, by, per_launch)
+    return case.plain
+
+
 def lk_gates(name, kp, kst, pp, pst, pts, valid, shifts):
     """A kernel's track against the plain track: A's gates.  Returns
     (status agreement, p99, max endpoint distance, median shift error)."""
@@ -252,88 +297,111 @@ def lk_gates(name, kp, kst, pp, pst, pts, valid, shifts):
     return agree, p99, max_err, err_shift
 
 
-def phase_kernel_a(device):
-    """LK kernel vs plain LK on the card at the slice's shapes."""
+
+def lk_cases(device):
+    """The LK cases of kernels A and C: the 8-pair case of the earlier
+    kernel table, and the main path's launches at 640x360 (16 tiles of
+    90x160x3, K 512, 3 levels): a motion block (api.CHUNK - 1 = 63 pairs),
+    a metric block (64 frames, shifted=False) and an online step (1 pair,
+    8,192 slots)."""
+    return {
+        "8 pairs": LkCase(device, "8 pairs", 8),
+        "motion": LkCase(device, "motion", 63, seed=SEED + 2),
+        "metric": LkCase(device, "metric", 64, shifted=False, seed=SEED + 3),
+        "online": LkCase(device, "online", 1, seed=SEED + 4),
+    }
+
+
+def phase_kernel_a(device, cases):
+    """LK kernel vs plain LK on the card at every case of `lk_cases`:
+    gates, device time per launch beside the plain version's and the bound,
+    the launch shape (warps per SM, registers)."""
     from meshflow_tpu_torch.kernels import lk_cuda
 
-    planes, dims, pts, valid, shifts = lk_case(device, 8, 90, 160, 2, 6, SEED)
+    warps, smem, per_block, regs = lk_cuda.occupancy(3)
+    print(f"kernel A launch at C=3: {warps} warps/SM ({per_block} a block, {smem} B shared a "
+          f"block), {regs} registers/thread; at C=1: {lk_cuda.occupancy(1)}")
+    out = {"max_abs_err": 0.0, "warps_per_sm": warps, "regs": regs}
+    for name, case in cases.items():
+        kp, kst = case.track(lk_cuda.lk_level)
+        pp, pst, bound_ms, bound_by, stats = lk_plain(case)
+        _, _, max_err, _ = lk_gates(f"kernel A {name}", kp, kst, pp, pst, case.pts,
+                                    case.valid, case.shifts)
+        levels = case.levels
+        ms = device_ms(lambda: case.track(lk_cuda.lk_level)) / levels
+        big = name in ("motion", "metric")
+        plain_ms = device_ms(lambda: case.track(lk_cuda.lk_level_plain), launches=1,
+                             batches=1 if big else 3) / levels
+        print(f"kernel A {name} per launch ({case.shape}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); per launch "
+              f"{stats['setups']:.0f} set-ups, {stats['iters']:.0f} steps")
+        out["max_abs_err"] = max(out["max_abs_err"], max_err)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, **stats}
+    main = out["motion"]  # the main path's launch
+    out.update(ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"], library_ms=None,
+               ms_8_pairs=out["8 pairs"]["ms"], ms_metric=out["metric"]["ms"],
+               ms_online=out["online"]["ms"])
+    return out
 
-    def run(level_fn):
-        return lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=level_fn)
 
-    kp, kst = run(lk_cuda.lk_level)
-    pp, pst = run(lk_cuda.lk_level_plain)
-    _, _, max_err, _ = lk_gates("kernel A", kp, kst, pp, pst, pts, valid, shifts)
-    ms = device_ms(lambda: run(lk_cuda.lk_level))
-    plain_ms = device_ms(lambda: run(lk_cuda.lk_level_plain), launches=1, batches=3)
-    bound_ms, bound_by, stats = lk_bound(run, planes, 3)
-    levels = len(planes)
-    print(f"kernel A: one track ({levels} launches): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}; {stats}) (8 pairs, 16 tiles 90x160x3, K 512)")
-    print(f"kernel A per launch (track / {levels}): kernel {ms / levels:.4f} ms, plain "
-          f"{plain_ms / levels:.4f} ms, bound {bound_ms / levels:.4f} ms")
-    return {"max_abs_err": max_err, "ms": ms / levels, "plain_ms": plain_ms / levels,
-            "bound_ms": bound_ms / levels, "bound_by": bound_by, "library_ms": None}
-
-
-def phase_kernel_c(device):
+def phase_kernel_c(device, motion):
     """Kernel C vs the plain version and vs kernel A on the card, at the
-    640x360 slice's tiles and at 1080p track_downscale=1 tiles with shifts
-    up to +-20 px (the top level re-stages its patch)."""
+    640x360 slice's tiles (8 pairs, and the main path's 63-pair motion
+    launch `motion`) and at 1080p track_downscale=1 tiles with shifts up to
+    +-20 px (the top level re-stages its patch)."""
     import torch
 
     from meshflow_tpu_torch.kernels import lk_band_cuda, lk_cuda
     from meshflow_tpu_torch.kernels.lk import PAD
 
     out = {"max_abs_err": 0.0}
-    for name, (pairs, th, tw, max_level, max_shift) in {
-        "640x360": (8, 90, 160, 2, 6),
-        "1080p-d1": (4, 270, 480, 3, 20),
-    }.items():
-        planes, dims, pts, valid, shifts = lk_case(device, pairs, th, tw, max_level,
-                                                   max_shift, SEED + 1)
-
+    cases = {
+        "640x360": LkCase(device, "640x360", 8, seed=SEED + 1),
+        "1080p-d1": LkCase(device, "1080p-d1", 4, th=270, tw=480, max_level=3, max_shift=20,
+                           seed=SEED + 1),
+        "motion": motion,
+    }
+    for name, case in cases.items():
         def band():
             with fetch_route("band"):
-                return lk_cuda.lk_track_pairs(planes, dims, pts, valid)
-
-        def run(level_fn):
-            return lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=level_fn)
+                return case.track()
 
         before = lk_band_cuda.lk_level_band.launches
         cp, cst = band()
-        check(lk_band_cuda.lk_level_band.launches == before + max_level + 1,
+        check(lk_band_cuda.lk_level_band.launches == before + case.levels,
               "kernel C launch count of one track")
-        ap, ast = run(lk_cuda.lk_level)
-        pp, pst = run(lk_cuda.lk_level_plain)
-        _, _, max_err, _ = lk_gates(f"kernel C {name}", cp, cst, pp, pst, pts, valid, shifts)
+        ap, ast = case.track(lk_cuda.lk_level)
+        pp, pst, bound_ms, bound_by, stats = lk_plain(case)
+        _, _, max_err, _ = lk_gates(f"kernel C {name}", cp, cst, pp, pst, case.pts,
+                                    case.valid, case.shifts)
         same_as_a = bool(torch.equal(cp, ap)) and bool(torch.equal(cst, ast))
         print(f"kernel C {name}: corners and status bit-identical to kernel A: {same_as_a}")
         check(same_as_a, f"kernel C differs from kernel A ({name})")
-        ms = device_ms(band)
-        a_ms = device_ms(lambda: run(lk_cuda.lk_level))
-        plain_ms = device_ms(lambda: run(lk_cuda.lk_level_plain), launches=1, batches=3)
-        bound_ms, bound_by, stats = lk_bound(run, planes, 3)
+        levels = case.levels
+        ms = device_ms(band) / levels
+        a_ms = device_ms(lambda: case.track(lk_cuda.lk_level)) / levels
+        plain_ms = device_ms(lambda: case.track(lk_cuda.lk_level_plain), launches=1,
+                             batches=1 if name == "motion" else 3) / levels
+        dims = case.dims
         top, low = (
             lk_band_cuda.occupancy(3, patch, dims[lvl][0] + 2 * PAD, dims[lvl][1] + 2 * PAD)
-            for patch, lvl in ((lk_band_cuda.PN_TOP, max_level), (lk_band_cuda.PN_LOWER, 0))
+            for patch, lvl in ((lk_band_cuda.PN_TOP, levels - 1), (lk_band_cuda.PN_LOWER, 0))
         )
-        levels = max_level + 1
         print(
-            f"kernel C {name}: one track ({levels} launches): kernel C {ms:.3f} ms, kernel A "
-            f"{a_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-            f"{stats}); {pairs} pairs, 16 tiles {th}x{tw}x3, K 512; "
-            f"warps/SM, shared B/block: C top {top}, C lower {low}, A {lk_cuda.occupancy()}"
+            f"kernel C {name} per launch ({case.shape}): kernel C {ms:.4f} ms, kernel A "
+            f"{a_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"per launch {stats['setups']:.0f} set-ups, {stats['iters']:.0f} steps; (warps/SM, "
+            f"shared B/block, warps/block, registers): C top {top}, C lower {low}, "
+            f"A {lk_cuda.occupancy(3)}"
         )
-        print(f"kernel C {name} per launch (track / {levels}): kernel C {ms / levels:.4f} ms, "
-              f"kernel A {a_ms / levels:.4f} ms, plain {plain_ms / levels:.4f} ms, bound "
-              f"{bound_ms / levels:.4f} ms")
         out["max_abs_err"] = max(out["max_abs_err"], max_err)
-        out[name] = {"ms": ms / levels, "a_ms": a_ms / levels, "plain_ms": plain_ms / levels,
-                     "bound_ms": bound_ms / levels, "bound_by": bound_by}
-    main = out["640x360"]  # the tiles the 1080p path tracks at d=3
+        out[name] = {"ms": ms, "a_ms": a_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "top": top, "lower": low}
+    main = out["motion"]  # the tiles the 1080p path tracks at d=3, at its launch
     out.update(ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-               bound_by=main["bound_by"], library_ms=None)
+               bound_by=main["bound_by"], library_ms=None, ms_8_pairs=out["640x360"]["ms"])
     return out
 
 
@@ -835,16 +903,37 @@ def phase_probes(device):
     return out
 
 
+def ptxas_report(log: str, match: str = "") -> list[str]:
+    """The ptxas lines of a build log (stack and spills, registers) of each
+    kernel entry whose name holds `match`, as "<entry>: <line>"."""
+    out, entry = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif match in entry and ("spill" in line or "registers" in line):
+            out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
 def tree_run(tree: Path, warm_passes: int = 3) -> int:
     """Kernel A on step 3's inputs and the 640x360 main path, with the
     package imported from the checkout in `tree`: one JSON line of output
-    digests, crop, metrics and wall times."""
+    digests, crop, metrics and wall times, and the device ms per launch of
+    kernel A at every `lk_cases` case, of kernel A's set-up alone
+    (``max_iters=0``, "A0") and of kernel C at the 8-pair and motion cases,
+    with kernel A's launch shape (the tree's ``lk_cuda.occupancy()``) and
+    the ptxas lines of the tree's LK kernels (when its build keeps them)."""
     sys.path.insert(0, str(tree))
     import torch
 
     import meshflow_tpu_torch
     from meshflow_tpu_torch.api import MeshFlowStabilizer
-    from meshflow_tpu_torch.kernels import lk_cuda
+    from meshflow_tpu_torch.kernels import _build, lk_cuda
+
+    ptxas = ptxas_report(_build.build()["log"], "lk_")
+
+    def setup_only(*args, **kwargs):
+        return lk_cuda.lk_level(*args, **{**kwargs, "max_iters": 0})
 
     def digest(*tensors):
         h = hashlib.sha256()
@@ -854,6 +943,13 @@ def tree_run(tree: Path, warm_passes: int = 3) -> int:
 
     planes, dims, pts, valid, _ = lk_case("cuda", 8, 90, 160, 2, 6, SEED)
     kp, kst = lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=lk_cuda.lk_level)
+    kernel_ms = {}
+    for name, case in lk_cases("cuda").items():
+        kernel_ms[f"A {name}"] = device_ms(lambda: case.track(lk_cuda.lk_level)) / case.levels
+        if name in ("8 pairs", "motion"):
+            kernel_ms[f"A0 {name}"] = device_ms(lambda: case.track(setup_only)) / case.levels
+            with fetch_route("band"):
+                kernel_ms[f"C {name}"] = device_ms(case.track) / case.levels
     frames = torch.from_numpy(synthetic_clip(300, 360, 640, pan=120)).to("cuda")
     stab = MeshFlowStabilizer(device="cuda")
     seconds = []
@@ -867,7 +963,8 @@ def tree_run(tree: Path, warm_passes: int = 3) -> int:
         "package": str(Path(meshflow_tpu_torch.__file__).parent),
         "kernel_a": digest(kp, kst), "main_path": digest(out[0], stab.last_crop),
         "crop": stab.last_crop.tolist(), "metrics": [float(x) for x in out[1:]],
-        "cold_s": seconds[0], "warm_s": seconds[1:],
+        "cold_s": seconds[0], "warm_s": seconds[1:], "kernel_ms": kernel_ms,
+        "a_occupancy": list(lk_cuda.occupancy()), "ptxas": ptxas,
     }))
     return 0
 
@@ -886,12 +983,22 @@ def compare_trees(other: Path, here: Path) -> int:
         runs.append(dict(json.loads(res.stdout.strip().splitlines()[-1]), tree=str(tree)))
     for key in ("kernel_a", "main_path"):
         check(len({r[key] for r in runs}) == 1, f"the trees' {key} outputs differ")
-    warm = {}
+    warm, kernel_ms = {}, {}
     for r in runs:
         warm.setdefault(r["tree"], []).extend(r["warm_s"])
+        for name, ms in r["kernel_ms"].items():
+            kernel_ms.setdefault(r["tree"], {}).setdefault(name, []).append(ms)
     print(json.dumps({"same_outputs": True, "warm_s": warm,
-                      "median_warm_s": {t: sorted(v)[len(v) // 2] for t, v in warm.items()}}))
+                      "median_warm_s": {t: sorted(v)[len(v) // 2] for t, v in warm.items()},
+                      "kernel_ms_per_launch": kernel_ms}))
     return 0
+
+
+# The keys of an LK kernel's row in the kernels line: `ms`, `plain_ms`,
+# `bound_ms` at the main path's motion launch, `ms_8_pairs` at the 8-pair
+# case of the earlier kernel table.
+LK_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+           "ms_8_pairs")
 
 
 def main() -> int:
@@ -935,16 +1042,16 @@ def main() -> int:
     hash_ms = (time.perf_counter() - start) * 1e3
     print(f"build: {info['seconds']:.2f} s -> {info['path']}; hashing the sources "
           f"{hash_ms:.3f} ms (done once per process, at the first launch)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print(f"  ptxas {line.strip()}")
+    for line in ptxas_report(info["log"]):
+        print(f"  ptxas {line}")
     _build.library()
 
     device = "cuda"
     os.environ.pop("MESHFLOW_LK_FETCH", None)  # the default route, onehot
-    a = phase_kernel_a(device)
+    cases = lk_cases(device)
+    a = phase_kernel_a(device, cases)
     b = phase_kernel_b(device)
-    c = phase_kernel_c(device)
+    c = phase_kernel_c(device, cases["motion"])
     launches, cold_s, warm_s = phase_main_path(device)
     launches_1080p, first_block = phase_1080p(device)
     phase_1080p_control(device, first_block, pan=360 * (64 - 1) / (300 - 1))
@@ -956,7 +1063,8 @@ def main() -> int:
         {"name": "lk_level", "route": "cuda",
          "source": "meshflow_tpu_torch/csrc/lk_level.cu",
          "replaces": "meshflow_tpu/kernels/_lk_pallas_onehot.py:73",
-         "launches": launches["lk_level"], **a},
+         "launches": launches["lk_level"],
+         **{k: a[k] for k in LK_KEYS + ("ms_metric", "ms_online", "warps_per_sm", "regs")}},
         {"name": "backward_map", "route": "cuda",
          "source": "meshflow_tpu_torch/csrc/bmap.cu",
          "replaces": "meshflow_tpu/kernels/bmap_pallas.py:90",
@@ -965,8 +1073,7 @@ def main() -> int:
          "source": "meshflow_tpu_torch/csrc/lk_band.cu",
          "replaces": "meshflow_tpu/kernels/_lk_pallas_band.py:89",
          "launches": launches_1080p["lk_band"],
-         **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms")}},
+         **{k: c[k] for k in LK_KEYS}},
     ] + [
         {"name": name, "route": "cuda",
          "source": f"meshflow_tpu_torch/csrc/{PROBE_KERNELS[name][0]}", **row}

@@ -64,12 +64,15 @@ def library_path() -> Path:
 def build() -> dict:
     """Compile the library if it is missing.
 
-    Returns {"path", "seconds", "log"}: seconds is 0 and log empty when the
+    Returns {"path", "seconds", "log"}: log is the compiler's output (ptxas
+    registers and spills), kept beside the library; seconds is 0 when the
     library was already built.
     """
     out = library_path()
+    log_path = out.with_name("build.log")
     if out.exists():
-        return {"path": str(out), "seconds": 0.0, "log": ""}
+        log = log_path.read_text() if log_path.exists() else ""
+        return {"path": str(out), "seconds": 0.0, "log": log}
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
@@ -96,6 +99,8 @@ def build() -> dict:
         )
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}")
+        log += link.stdout
+        log_path.write_text(log)
         os.replace(tmp, out)
     finally:
         for proc in procs:  # an exception above leaves no compiler running
@@ -105,7 +110,7 @@ def build() -> dict:
         for path in objects + [tmp]:
             path.unlink(missing_ok=True)
     seconds = time.perf_counter() - start
-    return {"path": str(out), "seconds": seconds, "log": log + link.stdout}
+    return {"path": str(out), "seconds": seconds, "log": log}
 
 
 @functools.cache
@@ -116,6 +121,7 @@ def library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.meshflow_lk_level.argtypes = [
         p, p, p, p, p, p, p, p,  # prev, next, pts, guess, valid, st, out, st_out
+        p,  # work counter
         i, i, i, i,  # T, S, K, C
         i, i, i, i,  # hpad, wpad, rows, cols
         i, i, f, f, i,  # shift, max_iters, eps2, min_eig_thr, is_level0
@@ -128,9 +134,9 @@ def library() -> ctypes.CDLL:
     ]
     lib.meshflow_lk_band.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.meshflow_lk_level_occupancy.argtypes = [ip, ip]
+    lib.meshflow_lk_level_occupancy.argtypes = [i, ip, ip, ip, ip]
     lib.meshflow_lk_level_occupancy.restype = i
-    lib.meshflow_lk_band_occupancy.argtypes = [i, i, i, i, ip, ip]
+    lib.meshflow_lk_band_occupancy.argtypes = [i, i, i, i, ip, ip, ip, ip]
     lib.meshflow_lk_band_occupancy.restype = i
     lib.meshflow_bmap.argtypes = [
         p, p, p, p,  # table, map_x, map_y, covered

@@ -1,4 +1,4 @@
-"""What every probe wrapper does around its kernel: the routing test, the
+"""What every kernel wrapper does around its kernel: the routing test, the
 checks of its CUDA tensors, and the call of its C entry point."""
 
 from __future__ import annotations
@@ -35,11 +35,24 @@ def require(name: str, *specs) -> torch.device:
     return device
 
 
+def c_args(args) -> list:
+    """The C values of an entry point's arguments: a tensor becomes its data
+    pointer, a Python float stays a float (the entry point's argtypes make
+    it a C float), anything else (ints, bools) an int."""
+    return [
+        ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+        else float(a) if isinstance(a, float)
+        else int(a)
+        for a in args
+    ]
+
+
+def stream_of(device: torch.device) -> ctypes.c_void_p:
+    """The current CUDA stream of `device`, as the entry points take it."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
 def launch(entry: str, device: torch.device, *args) -> None:
-    """Call the library's C entry point `entry` with tensors passed as
-    pointers and the rest as ints, on the current stream; raise if it
-    returns a CUDA error."""
-    conv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else int(a)
-            for a in args]
-    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-    _build.check(getattr(_build.library(), entry)(*conv, stream), entry)
+    """Call the library's C entry point `entry` with `args` converted by
+    `c_args`, then the current stream; raise if it returns a CUDA error."""
+    _build.check(getattr(_build.library(), entry)(*c_args(args), stream_of(device)), entry)

@@ -16,12 +16,10 @@ code, so the kernel is held to the plain version's exact coverage.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from meshflow_tpu_torch.config import MeshFlowConfig
-from meshflow_tpu_torch.kernels import _build
+from meshflow_tpu_torch.kernels import _launch
 from meshflow_tpu_torch.render.stabilize import (
     BackwardMap,
     backward_map_plain,
@@ -70,16 +68,10 @@ def backward_map(
     map_x = torch.empty(shape, dtype=torch.float32, device=device)
     map_y = torch.empty(shape, dtype=torch.float32, device=device)
     covered = torch.empty(shape, dtype=torch.bool, device=device)
-    lib = _build.library()
-    err = lib.meshflow_bmap(
-        ctypes.c_void_p(table.data_ptr()),
-        ctypes.c_void_p(map_x.data_ptr()),
-        ctypes.c_void_p(map_y.data_ptr()),
-        ctypes.c_void_p(covered.data_ptr()),
+    _launch.launch(
+        "meshflow_bmap", device, table, map_x, map_y, covered,
         f, frame_height, frame_width, rc, cc,
-        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
     )
-    _build.check(err, "backward_map")
     backward_map.launches += 1
     if single:
         return BackwardMap(map_x[0], map_y[0], covered[0])

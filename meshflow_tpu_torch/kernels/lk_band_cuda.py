@@ -68,13 +68,14 @@ lk_level_band.launches = 0
 
 
 def occupancy(channels: int, patch: int, hpad: int, wpad: int):
-    """(resident warps per SM, shared bytes per block) of a kernel C launch
-    on the current card."""
-    warps, smem = ctypes.c_int(), ctypes.c_int()
+    """Kernel C's launch shape on the current card for a level geometry:
+    resident warps per SM, shared bytes per block, warps per block,
+    registers per thread."""
+    out = [ctypes.c_int() for _ in range(4)]
     _build.check(
         _build.library().meshflow_lk_band_occupancy(
-            channels, patch, hpad, wpad, ctypes.byref(warps), ctypes.byref(smem)
+            channels, patch, hpad, wpad, *map(ctypes.byref, out)
         ),
         "lk_band occupancy",
     )
-    return warps.value, smem.value
+    return tuple(v.value for v in out)

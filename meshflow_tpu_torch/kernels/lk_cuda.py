@@ -8,7 +8,9 @@ package's Pallas kernel ``_lk_level_kernel``
 (``meshflow_tpu/kernels/_lk_pallas_onehot.py:73``, driven by
 ``lk_track_pairs_pallas`` / ``lk_track_parallel_pallas``).
 ``lk_level.launches`` counts kernel launches.  ``launch_level`` checks a
-level's tensors and calls a C entry point; kernel C
+level's tensors, allocates the outputs and the launch's work counter (the
+kernel's persistent warps take slots from it, so it starts at 0 at every
+launch) and calls a C entry point through ``_launch.launch``; kernel C
 (``lk_band_cuda.py``) launches through it too.
 
 ``lk_track_parallel`` and ``lk_track_pairs`` mirror the JAX package's: the
@@ -23,7 +25,7 @@ import ctypes
 
 import torch
 
-from meshflow_tpu_torch.kernels import _build
+from meshflow_tpu_torch.kernels import _build, _launch
 from meshflow_tpu_torch.kernels.lk import HALF, PAD, lk_level_plain
 
 __all__ = ["lk_level", "lk_level_plain", "lk_track_parallel", "lk_track_pairs"]
@@ -70,16 +72,12 @@ def launch_level(
     args = [a.contiguous() for a in args]
     corner = torch.empty_like(args[2])
     status = torch.empty_like(args[5])
-    err = getattr(_build.library(), entry)(
-        *(ctypes.c_void_p(a.data_ptr()) for a in args),
-        ctypes.c_void_p(corner.data_ptr()),
-        ctypes.c_void_p(status.data_ptr()),
+    counter = torch.zeros(1, dtype=torch.int32, device=device)
+    _launch.launch(
+        entry, device, *args, corner, status, counter,
         t, s, k, c, hpad, wpad, rows, cols, shift, max_iters,
-        float(eps) * float(eps), float(min_eig_threshold), int(is_level0),
-        *extra,
-        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
+        float(eps) * float(eps), float(min_eig_threshold), bool(is_level0), *extra,
     )
-    _build.check(err, entry)
     return corner, status
 
 
@@ -117,15 +115,16 @@ def lk_level(
 lk_level.launches = 0
 
 
-def occupancy():
-    """(resident warps per SM, shared bytes per block) of kernel A on the
-    current card."""
-    warps, smem = ctypes.c_int(), ctypes.c_int()
+def occupancy(channels: int = 3):
+    """Kernel A's launch shape on the current card at `channels`: resident
+    warps per SM, shared bytes per block, warps per block, registers per
+    thread."""
+    out = [ctypes.c_int() for _ in range(4)]
     _build.check(
-        _build.library().meshflow_lk_level_occupancy(ctypes.byref(warps), ctypes.byref(smem)),
+        _build.library().meshflow_lk_level_occupancy(channels, *map(ctypes.byref, out)),
         "lk_level occupancy",
     )
-    return warps.value, smem.value
+    return tuple(v.value for v in out)
 
 
 def lk_track_parallel(

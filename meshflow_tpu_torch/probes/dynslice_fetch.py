@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from meshflow_tpu_torch.probes._launch import launch, on_cpu, require
+from meshflow_tpu_torch.kernels._launch import launch, on_cpu, require
 from meshflow_tpu_torch.probes._slices import dyn_start
 
 HPAD, WPAD = 328, 664  # a 1080p level-0 subframe tile, padded

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from meshflow_tpu_torch.probes._launch import launch, on_cpu, require
+from meshflow_tpu_torch.kernels._launch import launch, on_cpu, require
 
 ROW_COUNTS = (48, 144, 432)  # the table heights the probe tests
 CELLS_PAD = 256

@@ -21,12 +21,14 @@ bit for bit; D's fine select with a random selection matrix within 1e-5
 relative.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from meshflow_tpu_torch.config import MeshFlowConfig
-from meshflow_tpu_torch.kernels import _build, bmap_cuda, lk_band_cuda, lk_cuda
+from meshflow_tpu_torch.kernels import _build, _launch, bmap_cuda, lk_band_cuda, lk_cuda
 from meshflow_tpu_torch.kernels.lk import reflect_pad_level
 from meshflow_tpu_torch.kernels.pyramid import build_pyramid, pyramid_shapes
 from meshflow_tpu_torch.probes import aligned_dynslice, dynslice_fetch, scalar_from_vmem, select_rows
@@ -40,7 +42,9 @@ def _card():
     return torch.device("cuda")
 
 
-def _tiles(seed, f, s, c, th, tw, shifts, max_level=2):
+def _tiles(seed, f, s, c, th, tw, shifts, max_level=2, k=128):
+    """Blurred-noise tiles, tile si offset (3 si, -2 si) (s <= 4), or on a
+    4-wide grid of (si % 4, -(si // 4)) offsets when s > 4."""
     rng = np.random.default_rng(seed)
     base = rng.integers(0, 256, (c, th + 80, tw + 80)).astype(np.float32)
     for _ in range(2):
@@ -49,16 +53,17 @@ def _tiles(seed, f, s, c, th, tw, shifts, max_level=2):
     frames = np.zeros((f, s, c, th, tw), np.float32)
     for t, (dy, dx) in enumerate(shifts):
         for si in range(s):
-            oy, ox = 40 + dy + 3 * si, 40 + dx - 2 * si
+            oy, ox = (40 + dy + 3 * si, 40 + dx - 2 * si) if s <= 4 else (
+                40 + dy + si % 4, 40 + dx - si // 4)
             frames[t, si] = base[:, oy : oy + th, ox : ox + tw]
     frames = torch.from_numpy(np.round(frames))
     planes = tuple(
         reflect_pad_level(x).to(torch.uint8) for x in build_pyramid(frames, max_level)
     )
     pts = np.stack(
-        [rng.uniform(4, tw - 4, (f, s, 128)), rng.uniform(4, th - 4, (f, s, 128))], axis=-1
+        [rng.uniform(4, tw - 4, (f, s, k)), rng.uniform(4, th - 4, (f, s, k))], axis=-1
     ).astype(np.float32)
-    valid = rng.random((f, s, 128)) < 0.9
+    valid = rng.random((f, s, k)) < 0.9
     dims = tuple(pyramid_shapes(th, tw, max_level))
     return planes, dims, torch.from_numpy(pts), torch.from_numpy(valid)
 
@@ -141,6 +146,112 @@ def test_build_key_follows_sources():
         "probe_dynslice_fetch.cu", "probe_scalar_from_vmem.cu", "probe_select_rows.cu",
     ]
     assert sorted(p.name for p in _build.SRC_DIR.glob("*.cuh")) == ["lk_common.cuh", "probes.cuh"]
+
+
+@pytest.mark.parametrize("value,kind", [
+    (1e-4, float), (0.01 * 0.01, float), (3, int), (True, int), (False, int),
+    (torch.zeros(4), ctypes.c_void_p),
+])
+def test_launch_arguments_keep_their_c_kind(value, kind):
+    """Floats stay floats (an int() would make eps2 = 1e-4 a 0), ints and
+    bools become ints, tensors their data pointers."""
+    (got,) = _launch.c_args([value])
+    assert type(got) is kind
+    if kind is ctypes.c_void_p:
+        assert got.value == value.data_ptr()
+    else:
+        assert got == value
+
+
+def test_launch_calls_the_entry_point_with_the_stream_last(monkeypatch):
+    calls = []
+
+    class Library:
+        def meshflow_lk_level(self, *args):
+            calls.append(args)
+            return 0
+
+        def failing(self, *args):
+            return 700
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(_launch, "stream_of", lambda device: "stream")
+    t = torch.zeros(2)
+    _launch.launch("meshflow_lk_level", torch.device("cpu"), t, 5, 1e-4, True)
+    ((ptr, n, eps2, flag, stream),) = calls
+    assert (ptr.value, n, eps2, flag, stream) == (t.data_ptr(), 5, 1e-4, 1, "stream")
+    with pytest.raises(RuntimeError, match="cudaError_t 700"):
+        _launch.launch("failing", torch.device("cpu"))
+
+
+def _motion_block():
+    """The main path's motion launch shape: 63 pairs of 16 tiles of
+    90x160x3 (640x360 frames), 512 slots a tile, 3 levels."""
+    rng = np.random.default_rng(7)
+    shifts = [(0, 0)] + [tuple(int(v) for v in rng.integers(-6, 7, 2)) for _ in range(63)]
+    return _tiles(7, 64, 16, 3, 90, 160, shifts, k=512)
+
+
+@pytest.fixture(scope="module")
+def motion_block():
+    dev = _card()
+    planes, dims, pts, valid = _motion_block()
+    return tuple(p.to(dev) for p in planes), dims, pts.to(dev), valid.to(dev)
+
+
+def _lk_gates(kp, kst, pp, pst, pts, valid):
+    assert (kst == pst)[valid].float().mean().item() >= 0.99
+    both = kst & pst
+    assert torch.quantile(torch.linalg.norm(kp - pp, dim=-1)[both], 0.99).item() <= 0.02
+    assert torch.equal(kp[~valid], pts[~valid]) and not kst[~valid].any()
+
+
+@pytest.mark.cuda
+def test_lk_kernel_matches_plain_at_the_motion_launch_on_card(motion_block):
+    planes, dims, pts, valid = motion_block
+    kp, kst = lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=lk_cuda.lk_level)
+    pp, pst = lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=lk_cuda.lk_level_plain)
+    _lk_gates(kp, kst, pp, pst, pts[:-1], valid[:-1])
+
+
+@pytest.mark.cuda
+def test_lk_kernel_unshifted_with_init_pts_on_card(motion_block):
+    """The metric pass's launch: frame t of one pyramid against frame t of
+    another (shifted=False), started at init_pts."""
+    planes, dims, pts, valid = motion_block
+    prev, nxt = tuple(p[:-1] for p in planes), tuple(p[1:] for p in planes)
+    init = pts[:-1] + 0.5
+
+    def run(fn):
+        return lk_cuda.lk_track_parallel(prev, nxt, dims, pts[:-1], valid[:-1],
+                                         init_pts=init, level_fn=fn)
+
+    _lk_gates(*run(lk_cuda.lk_level), *run(lk_cuda.lk_level_plain), pts[:-1], valid[:-1])
+
+
+@pytest.mark.cuda
+def test_band_kernel_bit_identical_to_kernel_a_at_the_motion_launch_on_card(
+    monkeypatch, motion_block
+):
+    planes, dims, pts, valid = motion_block
+    ap, ast = lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=lk_cuda.lk_level)
+    monkeypatch.setenv("MESHFLOW_LK_FETCH", "band")
+    cp, cst = lk_cuda.lk_track_pairs(planes, dims, pts, valid)
+    assert torch.equal(cp, ap) and torch.equal(cst, ast)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level_fn", [lk_cuda.lk_level, lk_band_cuda.lk_level_band])
+def test_lk_launches_in_a_row_give_equal_results_on_card(motion_block, level_fn):
+    """Each launch starts its own work counter at 0: two launches queued
+    back to back on one stream track every slot."""
+    planes, dims, pts, valid = motion_block
+    args = (planes[0], planes[0], pts[:-1] - 10.0, pts[:-1] - 10.0, valid[:-1], valid[:-1])
+    first = level_fn(*args, rows=dims[0][0], cols=dims[0][1])
+    second = level_fn(*args, rows=dims[0][0], cols=dims[0][1])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert not torch.equal(first[0][valid[:-1]], args[3][valid[:-1]])
 
 
 @pytest.mark.cuda
