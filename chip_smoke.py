@@ -14,10 +14,12 @@ From the root of a checkout, on a machine with one CUDA card:
    63-pair motion block, a 64-frame metric block (shifted=False) and a
    1-pair online step; device time per launch beside the plain version's
    and the bound, and the launch shape (warps per SM, registers);
-4. kernel B (backward map): the kernel against its plain version on a
-   64-frame 640x360 block with a 16x16 mesh (the main path's launch),
-   and on single frames with a heavy warp and at 1920x1080 with a 64x64
-   mesh;
+4. kernel B (backward map): the kernel against its plain version, maps,
+   coverage and crop edges equal, on a 64-frame 640x360 block with a
+   16x16 mesh (the main path's launch), a single 640x360 frame (online's
+   launch), a 1920x1080 frame with a 64x64 mesh, a heavy warp and
+   degenerate quads; a digest of its outputs; device ms, host-clock ms per
+   call and the plain version's ms at the first three;
 5. kernel C (LK level, staged footprint): against the plain version and
    bit for bit against kernel A, at the 640x360 tiles (8 pairs and the
    63-pair motion block) and at 1080p track_downscale=1 tiles (16 of
@@ -37,17 +39,20 @@ From the root of a checkout, on a machine with one CUDA card:
 10. the main path on a small clip on the card and on the CPU (plain
    versions), whose outputs must agree;
 11. the probes: ``python -m meshflow_tpu_torch.probes`` with the six
-   probe kernels' launch counts set to 0 before it, then each probe
-   kernel against its plain version (bit for bit; probe D's fine select
-   with a random selection within 1e-5 relative), and probe F's error on
-   general float32 values.
+   probe kernels' launch counts set to 0 before it (probe F also on
+   general float32 values), then each probe kernel against its plain
+   version (bit for bit; probe D's fine select with a random selection
+   within 1e-5 relative).
 
 Each kernel's bound is the larger of its operations over the H100's
-float32 rate (TF32 tensor-core rate for probe F) and its bytes over its
-memory rate; for the LK kernels the plain version counts the iterations
-the inputs need.  Times, bounds and launches are per kernel launch (an LK
-track of 3 levels is 3 launches); an LK kernel's `ms` is at the main
-path's motion launch, `ms_8_pairs` at the 8-pair case.  Prints one JSON
+float32 rate and its bytes over its memory rate; for the LK kernels the
+plain version counts the iterations the inputs need, for kernel B the
+lookups, homographies and bbox tests its pixels need (``return_work``).  Times, bounds and launches are per
+kernel launch (an LK track of 3 levels is 3 launches; kernel B's entry
+point is one launch of its table kernel and one of its map kernel); an LK
+kernel's `ms` is at the main path's motion launch, `ms_8_pairs` at the
+8-pair case; kernel B's at the main path's launch, beside `host_ms`,
+`ms_online`, `host_ms_online` and `ms_1080p_mesh64`.  Prints one JSON
 line of the kernels' launches, errors, times and bounds, then the last
 line ``{"ok": true, "device": {...}}``.  Any failed check or error exits
 non-zero before that line.  Without a CUDA device, or without the
@@ -58,10 +63,12 @@ package beside this file, it exits non-zero and prints no result.
 times another checkout of the repo (DIR, for example an earlier commit
 unpacked with ``git archive``) against this one on the same card: kernel
 A on the 8-pair inputs of step 3, kernels A and C per launch at step 3's
-cases, and the 640x360 main path (cold, then three warm passes), each
-tree in a process of its own, in the order DIR, this, this, DIR.  It
-checks that both trees give the same bytes (kernel A's track and the main
-path's output) and prints the times.
+cases, kernel B at step 4's cases (device and host-clock ms per call at
+the timed ones), and the 640x360 main path (cold, then three warm
+passes), each tree in a process of its own, in the order DIR, this, this,
+DIR.  It checks that both trees give the same bytes (kernel A's track,
+kernel B's outputs and the main path's output) and prints the times.
+``--parts lk,bmap,main`` runs only the parts named.
 """
 
 from __future__ import annotations
@@ -405,66 +412,175 @@ def phase_kernel_c(device, motion):
     return out
 
 
-def phase_kernel_b(device):
-    """Backward-map kernel vs plain backward map on the card."""
+# Operations kernel B's outputs need (its bound), per pixel, as the plain
+# version counts what its data needs (``return_work``): each cell lookup
+# is a few operations an axis (a compare, a min, a floor, a multiply and a
+# shift, a clamp: 5); each homography applied to the pixel 13 (6 products,
+# 4 sums, the clamp, 2 divisions); each candidate's bbox test 8.  Per cell
+# of each frame, the table: two unit-square maps of 35 operations, the
+# adjugate (27) and the 3x3 product (45).
+BMAP_LOOKUP_OPS = 2 * 5
+BMAP_HOMOGRAPHY_OPS = 13
+BMAP_BBOX_OPS = 8
+BMAP_CELL_OPS = 2 * 35 + 27 + 45
+
+# Kernel B's cases: name -> (width, height, mesh, vertex noise sigma,
+# frames, degenerate quads).  The first three are timed: the main path's
+# launch (a 64-frame render block at 640x360), online mode's (one frame)
+# and a 1080p frame on a 64x64 mesh.
+BMAP_CASES = {
+    "main": (640, 360, 16, 1.5, 64, False),
+    "online": (640, 360, 16, 1.5, 1, False),
+    "1080p/64": (1920, 1080, 64, 3.0, 1, False),
+    "heavy warp": (640, 360, 16, 12.0, 1, False),
+    "degenerate": (640, 360, 16, 3.0, 4, True),
+}
+BMAP_TIMED = ("main", "online", "1080p/64")
+
+
+def degenerate_quads(stab):
+    """Corner positions with degenerate cells: a vertex collapsed onto its
+    right neighbour and one onto its diagonal neighbour (den 0, clamped),
+    a cell shrunk to a point, and vertices pushed far outside the frame
+    (5e3 and 1e6 px, and 1e30, which overflows the cell's table)."""
+    import torch
+
+    out = stab.clone()
+    r, c = out.shape[-3] - 1, out.shape[-2] - 1
+    out[..., 1, 1, :] = out[..., 1, 2, :]
+    out[..., r - 1, 1, :] = out[..., r, 2, :]
+    out[..., 2, c - 1, :] = out[..., 2, c, :] = out[..., 3, c - 1, :] = out[..., 3, c, :]
+    far = torch.tensor([[5e3, -7e3], [1e6, 1e6], [1e30, -1e30]], device=out.device)
+    for k, v in enumerate(far):
+        out[..., r - 1 - 2 * k, 3 + 4 * k, :] = v
+    return out
+
+
+def bmap_inputs(device, name):
+    """(config, stab_pos, unstab_grid, h, w) of kernel B's case `name`,
+    seeded."""
     import numpy as np
     import torch
 
     from meshflow_tpu_torch.config import MeshFlowConfig
-    from meshflow_tpu_torch.kernels import bmap_cuda
-    from meshflow_tpu_torch.render.stabilize import crop_edges
     from meshflow_tpu_torch.utils import grid
 
-    out = {}
-    max_err = 0.0
-    # (width, height, mesh, vertex noise sigma, frames per launch); the
-    # first case is the main path's launch: a 64-frame block at 640x360
-    for name, (w, h, mesh, sigma, frames) in {
-        "640x360/16/s1.5/x64": (640, 360, 16, 1.5, 64),
-        "640x360/16/s12": (640, 360, 16, 12.0, 1),
-        "1920x1080/64/s3": (1920, 1080, 64, 3.0, 1),
-    }.items():
-        config = MeshFlowConfig(mesh_row_count=mesh, mesh_col_count=mesh)
-        rng = np.random.default_rng(SEED + mesh + int(sigma))
-        unstab = grid.vertex_grid(config, h, w, device=device)
-        shape = (frames,) + tuple(unstab.shape) if frames > 1 else tuple(unstab.shape)
-        noise = rng.normal(0.0, sigma, shape).astype(np.float32)
-        stab = unstab + torch.from_numpy(noise).to(device)
+    w, h, mesh, sigma, frames, degenerate = BMAP_CASES[name]
+    config = MeshFlowConfig(mesh_row_count=mesh, mesh_col_count=mesh)
+    rng = np.random.default_rng(SEED + mesh + int(sigma))
+    unstab = grid.vertex_grid(config, h, w, device=device)
+    shape = (frames,) + tuple(unstab.shape) if frames > 1 else tuple(unstab.shape)
+    stab = unstab + torch.from_numpy(rng.normal(0.0, sigma, shape).astype(np.float32)).to(device)
+    return config, degenerate_quads(stab) if degenerate else stab, unstab, h, w
+
+
+def host_clock_ms(fn, calls: int = 20) -> float:
+    """Host-clock ms per call: perf_counter around `calls` calls of fn(),
+    ending in a synchronize (after one warm call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) / calls * 1e3
+
+
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def bmap_times(device, name):
+    """(device ms, host-clock ms) per backward_map call at kernel B's case
+    `name`."""
+    from meshflow_tpu_torch.kernels import bmap_cuda
+
+    config, stab, unstab, h, w = bmap_inputs(device, name)
+
+    def call():
+        return bmap_cuda.backward_map(stab, unstab, config, h, w)
+
+    return device_ms(call), host_clock_ms(call)
+
+
+def phase_kernel_b(device):
+    """Kernel B against the plain backward map on the card at every case of
+    BMAP_CASES: maps, coverage and crop edges equal; a digest of all its
+    outputs; at the timed cases device ms, host-clock ms per call and the
+    plain version's device ms; the bound at the main path's launch; the
+    map kernel's launch shape at 16x16 and 64x64 meshes."""
+    import ctypes
+
+    import torch
+
+    from meshflow_tpu_torch.kernels import _build, bmap_cuda
+    from meshflow_tpu_torch.render.stabilize import crop_edges
+
+    shapes = {}
+    for mesh in (16, 64):
+        vals = [ctypes.c_int() for _ in range(3)]
+        _build.check(_build.library().meshflow_bmap_occupancy(
+            mesh, mesh, *map(ctypes.byref, vals)), "bmap occupancy")
+        shapes[mesh] = tuple(v.value for v in vals)
+        print(f"kernel B map launch at a {mesh}x{mesh} mesh: {shapes[mesh][0]} warps/SM, "
+              f"{shapes[mesh][1]} B shared a block, {shapes[mesh][2]} registers/thread")
+    out = {"max_abs_err": 0.0, "library_ms": None, "warps_per_sm": shapes[16][0],
+           "regs": shapes[16][2], "warps_per_sm_mesh64": shapes[64][0]}
+    outputs = []
+    for name in BMAP_CASES:
+        config, stab, unstab, h, w = bmap_inputs(device, name)
         kb = bmap_cuda.backward_map(stab, unstab, config, h, w)
-        pb = bmap_cuda.backward_map_plain(stab, unstab, config, h, w)
+        pb, work = bmap_cuda.backward_map_plain(stab, unstab, config, h, w, return_work=True)
+        pixels = pb.covered.numel()
         torch.cuda.synchronize()
-        cov_equal = bool(torch.equal(kb.covered, pb.covered))
-        cov = pb.covered
-        err = max(
-            (kb.map_x - pb.map_x)[cov].abs().max().item(),
-            (kb.map_y - pb.map_y)[cov].abs().max().item(),
-        )
+        outputs += list(kb)
+        equal = [bool(torch.equal(k, p)) for k, p in zip(kb, pb)]
         edges_equal = bool(torch.equal(crop_edges(kb, h, w), crop_edges(pb, h, w)))
-        ms = device_ms(lambda: bmap_cuda.backward_map(stab, unstab, config, h, w))
-        plain_ms = device_ms(lambda: bmap_cuda.backward_map_plain(stab, unstab, config, h, w),
-                             launches=1, batches=3)
-        print(
-            f"kernel B {name}: covered equal {cov_equal} "
-            f"(uncovered {int((~cov).sum())} px), max map err {err:.3g}, "
-            f"crop edges equal {edges_equal}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
-        )
-        check(cov_equal, f"kernel B coverage differs ({name})")
-        check(err <= 1e-4, f"kernel B map error {err} > 1e-4 ({name})")
+        cov = pb.covered
+        err = max((k - p)[cov].abs().max().item() if cov.any() else 0.0
+                  for k, p in zip(kb[:2], pb[:2]))
+        line = (f"kernel B {name} ({w}x{h}, mesh {config.mesh_row_count}, "
+                f"{stab.shape[0] if stab.dim() == 4 else 1} frame(s)): map_x, map_y, covered "
+                f"equal {equal} (uncovered {int((~cov).sum())} px), crop edges equal "
+                f"{edges_equal}, max map err {err:.3g}; a pixel needs " + ", ".join(
+                    f"{v.sum().item() / pixels:.4f} {k}" for k, v in work.items()))
+        check(all(equal), f"kernel B outputs differ from the plain version ({name})")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
         check(edges_equal, f"kernel B crop edges differ ({name})")
-        max_err = max(max_err, err)
-        if frames > 1:
-            # csrc/bmap.cu per pixel: 4 cell searches of (rc-1)+(cc-1)
-            # compares, 3 fixed-point steps of 13 operations, 9 candidate
-            # cells of 13 operations + 8 for the bbox test; it reads the
-            # cell tables and writes map_x, map_y (4 B each) and covered.
-            cells = mesh * mesh
-            ops = frames * w * h * (4 * 2 * (mesh - 1) + 3 * 13 + 9 * 21)
-            nbytes = frames * (cells * 13 * 4 + w * h * 9)
-            bound_ms, bound_by = bound(ops, nbytes)
-            print(f"kernel B {name}: bound {bound_ms:.4f} ms ({bound_by})")
-            out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": None}
-    out["max_abs_err"] = max_err
+        if name in BMAP_TIMED:
+            ms, host_ms = bmap_times(device, name)
+            plain_ms = device_ms(
+                lambda: bmap_cuda.backward_map_plain(stab, unstab, config, h, w),
+                launches=1, batches=3)
+            line += f"; kernel {ms:.4f} ms (host clock {host_ms:.4f} ms), plain {plain_ms:.4f} ms"
+            out[name] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms}
+        if name == "main":
+            frames, cells = stab.shape[0], config.mesh_row_count * config.mesh_col_count
+            count = {k: int(v.sum()) for k, v in work.items()}
+            ops = (BMAP_LOOKUP_OPS * count["lookups"] + BMAP_HOMOGRAPHY_OPS * count["homographies"]
+                   + BMAP_BBOX_OPS * count["candidates"] + BMAP_CELL_OPS * frames * cells)
+            nbytes = (stab.numel() + unstab.numel()) * 4 + 9 * pixels
+            out["bound_ms"], out["bound_by"] = bound(ops, nbytes)
+            full, _ = bound((4 * BMAP_LOOKUP_OPS + 12 * BMAP_HOMOGRAPHY_OPS + 9 * BMAP_BBOX_OPS)
+                            * pixels + BMAP_CELL_OPS * frames * cells, nbytes)
+            line += (f"; bound {out['bound_ms']:.4f} ms ({out['bound_by']}; every step and "
+                     f"all 9 candidates a pixel: {full:.4f} ms)")
+        print(line)
+    out["digest"] = digest(*outputs)
+    print(f"kernel B outputs digest {out['digest']}")
+    main = out.pop("main")
+    out.update(ms=main["ms"], host_ms=main["host_ms"], plain_ms=main["plain_ms"],
+               ms_online=out["online"]["ms"], host_ms_online=out["online"]["host_ms"],
+               ms_1080p_mesh64=out["1080p/64"]["ms"],
+               host_ms_1080p_mesh64=out["1080p/64"]["host_ms"])
+    for name in BMAP_TIMED[1:]:
+        out.pop(name)
     return out
 
 
@@ -731,14 +847,6 @@ def phase_small_agreement(device):
     check(max(rel) <= 1e-2, f"card vs CPU metrics differ by {rel}")
 
 
-def tf32_round(x):
-    """x rounded to TF32 as cvt.rna does: 10 mantissa bits, ties away."""
-    import torch
-
-    bits = x.view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
 # The probe kernels of the kernels line: name -> (CUDA source in csrc/,
 # the case the line reports, the Pallas kernel it replaces)
 PROBE_KERNELS = {
@@ -772,7 +880,7 @@ def probe_bound(kernel, case):
     )
     from meshflow_tpu_torch.probes._slices import dyn_start
 
-    n = int(case.split("=")[1])
+    n = int(case.split("=")[1].split()[0])
     if kernel in ("dynslice_copy", "dynslice_fine", "onehot_rowsel"):
         idx, plane = d.probe_inputs(n)
         h, w = plane.shape
@@ -810,9 +918,9 @@ def phase_probes(device):
     the card with the six probe kernels' counts set to 0 before it and
     read after it; then, with launches of their own, each kernel against
     its plain version under the gates: bit-equal at the probes' sizes and
-    at clamped and wrapped starts, D's fine select with a random selection
-    matrix within 1e-5 relative.  Prints, ungated, F's error on a table of
-    general float32 values with 1, 2 and 3 TF32 pieces."""
+    at clamped and wrapped starts (F also on general float32 values, in the
+    entry point), D's fine select with a random selection matrix within
+    1e-5 relative."""
     import numpy as np
     import torch
 
@@ -869,18 +977,6 @@ def phase_probes(device):
     check(torch.equal(g.band_row(plane, corners), g.band_row_plain(plane, corners)),
           "scalar_from_vmem differs at clamped and wrapped bases")
 
-    # F on general float32 values: the error of 1, 2 and 3 TF32 pieces
-    table = torch.from_numpy(rng.normal(0, 1, (432, f.CELLS_PAD)).astype(np.float32)).to(device)
-    _, cells = (t.to(device) for t in f.probe_inputs(432))
-    want = f.select_rows_plain(table, cells)
-    rest, total, pieces = table, torch.zeros_like(want), []
-    for n in (1, 2, 3):  # the kernel rounds each piece to TF32 itself
-        total = total + f.select_rows(rest, cells)
-        rest = rest - tf32_round(rest)
-        exact, bad, size, rel = f.select_report(total, want)
-        pieces.append(f"{n} piece(s): exact={exact} bad={bad}/{size} max rel err={rel:.3e}")
-    print("probe F on general float32 (432 rows, ungated): " + "; ".join(pieces))
-
     out = {}
     for name, (_, case, replaces) in PROBE_KERNELS.items():
         rows = [r for r in results if r["kernel"] == name]
@@ -903,94 +999,111 @@ def phase_probes(device):
     return out
 
 
-def ptxas_report(log: str, match: str = "") -> list[str]:
+def ptxas_report(log: str, *match: str) -> list[str]:
     """The ptxas lines of a build log (stack and spills, registers) of each
-    kernel entry whose name holds `match`, as "<entry>: <line>"."""
+    kernel entry whose name holds one of `match` (every entry if none), as
+    "<entry>: <line>"."""
     out, entry = [], ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif match in entry and ("spill" in line or "registers" in line):
+        elif (not match or any(m in entry for m in match)) and (
+                "spill" in line or "registers" in line):
             out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
     return out
 
 
-def tree_run(tree: Path, warm_passes: int = 3) -> int:
-    """Kernel A on step 3's inputs and the 640x360 main path, with the
-    package imported from the checkout in `tree`: one JSON line of output
-    digests, crop, metrics and wall times, and the device ms per launch of
-    kernel A at every `lk_cases` case, of kernel A's set-up alone
-    (``max_iters=0``, "A0") and of kernel C at the 8-pair and motion cases,
-    with kernel A's launch shape (the tree's ``lk_cuda.occupancy()``) and
-    the ptxas lines of the tree's LK kernels (when its build keeps them)."""
+TREE_PARTS = ("lk", "bmap", "main")
+
+
+def tree_run(tree: Path, parts=TREE_PARTS, warm_passes: int = 3) -> int:
+    """The `parts` of a tree's run, with the package imported from the
+    checkout in `tree`; prints one JSON line.  "lk": kernel A on step 3's
+    inputs (digest), the device ms per launch of kernel A at every
+    `lk_cases` case, of kernel A's set-up alone (``max_iters=0``, "A0") and
+    of kernel C at the 8-pair and motion cases, kernel A's launch shape
+    (the tree's ``lk_cuda.occupancy()``).  "bmap": kernel B's outputs at
+    every BMAP_CASES case (digest), device ms and host-clock ms per call at
+    the timed cases.  "main": the 640x360 main path's output digest, crop,
+    metrics and wall times.  Always the ptxas lines of the tree's LK and
+    backward-map kernels (when its build keeps them)."""
     sys.path.insert(0, str(tree))
     import torch
 
     import meshflow_tpu_torch
     from meshflow_tpu_torch.api import MeshFlowStabilizer
-    from meshflow_tpu_torch.kernels import _build, lk_cuda
+    from meshflow_tpu_torch.kernels import _build, bmap_cuda, lk_cuda
 
-    ptxas = ptxas_report(_build.build()["log"], "lk_")
+    result = {"package": str(Path(meshflow_tpu_torch.__file__).parent),
+              "ptxas": ptxas_report(_build.build()["log"], "lk_", "map_kernel", "table_kernel"),
+              "kernel_ms": {}, "host_ms": {}}
+    kernel_ms = result["kernel_ms"]
+    if "lk" in parts:
+        def setup_only(*args, **kwargs):
+            return lk_cuda.lk_level(*args, **{**kwargs, "max_iters": 0})
 
-    def setup_only(*args, **kwargs):
-        return lk_cuda.lk_level(*args, **{**kwargs, "max_iters": 0})
-
-    def digest(*tensors):
-        h = hashlib.sha256()
-        for t in tensors:
-            h.update(t.contiguous().cpu().numpy().tobytes())
-        return h.hexdigest()[:16]
-
-    planes, dims, pts, valid, _ = lk_case("cuda", 8, 90, 160, 2, 6, SEED)
-    kp, kst = lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=lk_cuda.lk_level)
-    kernel_ms = {}
-    for name, case in lk_cases("cuda").items():
-        kernel_ms[f"A {name}"] = device_ms(lambda: case.track(lk_cuda.lk_level)) / case.levels
-        if name in ("8 pairs", "motion"):
-            kernel_ms[f"A0 {name}"] = device_ms(lambda: case.track(setup_only)) / case.levels
-            with fetch_route("band"):
-                kernel_ms[f"C {name}"] = device_ms(case.track) / case.levels
-    frames = torch.from_numpy(synthetic_clip(300, 360, 640, pan=120)).to("cuda")
-    stab = MeshFlowStabilizer(device="cuda")
-    seconds = []
-    for _ in range(1 + warm_passes):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        out = stab._stabilize_frames(frames, MeshFlowStabilizer.ADAPTIVE_WEIGHTS_DEFINITION_ORIGINAL)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - start)
-    print(json.dumps({
-        "package": str(Path(meshflow_tpu_torch.__file__).parent),
-        "kernel_a": digest(kp, kst), "main_path": digest(out[0], stab.last_crop),
-        "crop": stab.last_crop.tolist(), "metrics": [float(x) for x in out[1:]],
-        "cold_s": seconds[0], "warm_s": seconds[1:], "kernel_ms": kernel_ms,
-        "a_occupancy": list(lk_cuda.occupancy()), "ptxas": ptxas,
-    }))
+        planes, dims, pts, valid, _ = lk_case("cuda", 8, 90, 160, 2, 6, SEED)
+        result["kernel_a"] = digest(*lk_cuda.lk_track_pairs(planes, dims, pts, valid,
+                                                            level_fn=lk_cuda.lk_level))
+        for name, case in lk_cases("cuda").items():
+            kernel_ms[f"A {name}"] = device_ms(lambda: case.track(lk_cuda.lk_level)) / case.levels
+            if name in ("8 pairs", "motion"):
+                kernel_ms[f"A0 {name}"] = device_ms(lambda: case.track(setup_only)) / case.levels
+                with fetch_route("band"):
+                    kernel_ms[f"C {name}"] = device_ms(case.track) / case.levels
+        result["a_occupancy"] = list(lk_cuda.occupancy())
+    if "bmap" in parts:
+        outputs = []
+        for name in BMAP_CASES:
+            config, stab, unstab, h, w = bmap_inputs("cuda", name)
+            outputs += list(bmap_cuda.backward_map(stab, unstab, config, h, w))
+        result["bmap"] = digest(*outputs)
+        for name in BMAP_TIMED:
+            kernel_ms[f"B {name}"], result["host_ms"][f"B {name}"] = bmap_times("cuda", name)
+    if "main" in parts:
+        frames = torch.from_numpy(synthetic_clip(300, 360, 640, pan=120)).to("cuda")
+        stab = MeshFlowStabilizer(device="cuda")
+        seconds = []
+        for _ in range(1 + warm_passes):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = stab._stabilize_frames(
+                frames, MeshFlowStabilizer.ADAPTIVE_WEIGHTS_DEFINITION_ORIGINAL)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+        result.update(main_path=digest(out[0], stab.last_crop), crop=stab.last_crop.tolist(),
+                      metrics=[float(x) for x in out[1:]], cold_s=seconds[0],
+                      warm_s=seconds[1:])
+    print(json.dumps(result))
     return 0
 
 
-def compare_trees(other: Path, here: Path) -> int:
+def compare_trees(other: Path, here: Path, parts=TREE_PARTS) -> int:
     """`tree_run` of `other` and of this checkout, each in its own process,
     in the order other, this, this, other; both must give the same bytes."""
     runs = []
     for tree in (other, here, here, other):
         res = subprocess.run(
-            [sys.executable, str(here / "chip_smoke.py"), "--tree", str(tree)],
+            [sys.executable, str(here / "chip_smoke.py"), "--tree", str(tree),
+             "--parts", ",".join(parts)],
             stdout=subprocess.PIPE, text=True, timeout=900,
         )
         sys.stdout.write(res.stdout)
         check(res.returncode == 0, f"the run of {tree} exited {res.returncode}")
         runs.append(dict(json.loads(res.stdout.strip().splitlines()[-1]), tree=str(tree)))
-    for key in ("kernel_a", "main_path"):
-        check(len({r[key] for r in runs}) == 1, f"the trees' {key} outputs differ")
-    warm, kernel_ms = {}, {}
+    for key in ("kernel_a", "bmap", "main_path"):
+        if key in runs[0]:
+            check(len({r[key] for r in runs}) == 1, f"the trees' {key} outputs differ")
+    warm, times = {}, {"kernel_ms": {}, "host_ms": {}}
     for r in runs:
-        warm.setdefault(r["tree"], []).extend(r["warm_s"])
-        for name, ms in r["kernel_ms"].items():
-            kernel_ms.setdefault(r["tree"], {}).setdefault(name, []).append(ms)
+        warm.setdefault(r["tree"], []).extend(r.get("warm_s", []))
+        for kind, per_tree in times.items():
+            for name, ms in r[kind].items():
+                per_tree.setdefault(r["tree"], {}).setdefault(name, []).append(ms)
     print(json.dumps({"same_outputs": True, "warm_s": warm,
-                      "median_warm_s": {t: sorted(v)[len(v) // 2] for t, v in warm.items()},
-                      "kernel_ms_per_launch": kernel_ms}))
+                      "median_warm_s": {t: sorted(v)[len(v) // 2] for t, v in warm.items() if v},
+                      "kernel_ms_per_launch": times["kernel_ms"],
+                      "host_ms_per_call": times["host_ms"]}))
     return 0
 
 
@@ -1006,7 +1119,13 @@ def main() -> int:
     parser.add_argument("--compare", metavar="DIR", type=Path,
                         help="time the checkout in DIR against this one (see above)")
     parser.add_argument("--tree", metavar="DIR", type=Path, help=argparse.SUPPRESS)
+    parser.add_argument("--parts", default=",".join(TREE_PARTS),
+                        help="with --compare or --tree: the parts to run, of "
+                             f"{', '.join(TREE_PARTS)} (default: all)")
     args = parser.parse_args()
+    parts = tuple(args.parts.split(","))
+    if not set(parts) <= set(TREE_PARTS):
+        parser.error(f"--parts: unknown part in {args.parts}")
     try:
         import torch
     except ImportError:
@@ -1020,7 +1139,7 @@ def main() -> int:
         print("chip_smoke: meshflow_tpu_torch not found beside this script", file=sys.stderr)
         return 2
     if args.tree is not None:
-        return tree_run(args.tree.resolve())
+        return tree_run(args.tree.resolve(), parts)
     sys.path.insert(0, str(repo))
 
     smi = subprocess.run(
@@ -1031,7 +1150,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     if args.compare is not None:
-        return compare_trees(args.compare.resolve(), repo)
+        return compare_trees(args.compare.resolve(), repo, parts)
 
     import meshflow_tpu_torch  # noqa: F401  (TF32 pins)
     from meshflow_tpu_torch.kernels import _build

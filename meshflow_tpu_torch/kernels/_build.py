@@ -138,12 +138,17 @@ def library() -> ctypes.CDLL:
     lib.meshflow_lk_level_occupancy.restype = i
     lib.meshflow_lk_band_occupancy.argtypes = [i, i, i, i, ip, ip, ip, ip]
     lib.meshflow_lk_band_occupancy.restype = i
+    u = ctypes.c_uint
     lib.meshflow_bmap.argtypes = [
-        p, p, p, p,  # table, map_x, map_y, covered
+        p, p, p,  # stab_pos, unstab_grid, table workspace
+        p, p, p,  # map_x, map_y, covered
         i, i, i, i, i,  # F, H, W, rows, cols
+        u, i, i, u, i, i,  # rows' and cols' axis_divisor: magic, shift, bias
         p,  # stream
     ]
     lib.meshflow_bmap.restype = i
+    lib.meshflow_bmap_occupancy.argtypes = [i, i, ip, ip, ip]
+    lib.meshflow_bmap_occupancy.restype = i
     # probes D-G (csrc/probe_*.cu); every entry point ends with the stream
     for name, args in {
         "meshflow_probe_dynslice_copy": [p, p, p, p, i, i, i, i],

@@ -8,10 +8,11 @@ seed, on the CUDA card unless ``--device cpu`` is given, and prints the
 lines its script prints: us/round and us/feature for each fetch of
 ``dynslice_fetch``; OK or WRONG for ``aligned_dynslice`` and
 ``scalar_from_vmem``; ``exact=``, ``bad=`` and ``max rel err`` for each
-table height of ``select_rows``.  On the card each line also holds the
-kernel held against its plain version (``kernel == plain``), the plain
-version's time and, where one PyTorch call computes the same function,
-that call's time.  Times are per launch, on the card's clock: the median
+table height of ``select_rows``, then ``exact=`` and ``bad=`` on a table
+of general float32 values (random bit patterns, compared as bits).  On
+the card each line also holds the kernel held against its plain version
+(``kernel == plain``), the plain version's time and, where one PyTorch
+call computes the same function, that call's time.  Times are per launch, on the card's clock: the median
 over 5 batches of CUDA events around 20 launches queued behind a spin
 kernel, so that the host's enqueue is hidden; the host's enqueue time per
 launch (the wrapper's cost) is printed beside the kernel's.  On the CPU the plain
@@ -182,6 +183,20 @@ def run_select_rows(device) -> list:
             line += (f"; kernel {_us(times['ms'])} (host enqueue {_us(times['host_ms'])}), "
                      f"plain {_us(times['plain_ms'])}, library {_us(times['library_ms'])}")
         print(line, flush=True)
+    # any float32 bit pattern: compared as bits, since NaN != NaN
+    nrows = f.ROW_COUNTS[-1]
+    table, cells = f.general_table(nrows).to(device), cells.to(device)
+    got, want = (x.view(torch.int32) for x in (f.select_rows(table, cells),
+                                                f.select_rows_plain(table, cells)))
+    bad = int((got != want).sum())
+    times = _timed(device, lambda: f.select_rows(table, cells),
+                   lambda: f.select_rows_plain(table, cells))
+    results.append(_result("select_rows", f"rows={nrows} float32", got, want, times))
+    line = (f"rows={nrows:4d}, general float32 (random bit patterns): exact={bad == 0}  "
+            f"bad={bad}/{got.numel()}")
+    if times["ms"] is not None:
+        line += f"; kernel {_us(times['ms'])}, plain {_us(times['plain_ms'])}"
+    print(line, flush=True)
     return results
 
 

@@ -95,9 +95,19 @@ def _apply_cells(table, cell_ids, px, py):
 
 
 def backward_map_frame_plain(
-    table: torch.Tensor, config: MeshFlowConfig, frame_height: int, frame_width: int
-) -> BackwardMap:
-    """Backward map of one frame from its (cells, 13) cell table."""
+    table: torch.Tensor, config: MeshFlowConfig, frame_height: int, frame_width: int,
+    return_work: bool = False,
+):
+    """Backward map of one frame from its (cells, 13) cell table.
+
+    With return_work, also the work its result needs, per pixel ((H, W)
+    int32 each): `lookups`, cell searches; `homographies`, cell
+    homographies applied to the pixel; `candidates`, bbox tests.  That is
+    the work of a search that stops the fixed-point steps when a step finds
+    the cell of the step before (the step would repeat it), takes the
+    candidates in descending row-major order up to the first member (all
+    of them for an uncovered pixel), and for the candidate that is the
+    cell of the last step reuses that step's point."""
     rc, cc = config.mesh_row_count, config.mesh_col_count
     device = table.device
     ys = torch.arange(frame_height, dtype=torch.float32, device=device)
@@ -113,14 +123,17 @@ def backward_map_frame_plain(
         return torch.clamp(row, 0, rc - 1), torch.clamp(col, 0, cc - 1)
 
     qx, qy = px, py
+    keys = []
     for _ in range(3):
         row, col = cell_of(qx, qy)
-        qx, qy, _ = _apply_cells(table, row * cc + col, px, py)
+        keys.append(row * cc + col)
+        qx, qy, _ = _apply_cells(table, keys[-1], px, py)
     row0, col0 = cell_of(qx, qy)
 
     best_key = torch.full(px.shape, -1, dtype=torch.int64, device=device)
     best_qx = torch.full(px.shape, float(frame_width + 1), device=device)
     best_qy = torch.full(px.shape, float(frame_height + 1), device=device)
+    in_grid = []
     for dr in (-1, 0, 1):
         for dc in (-1, 0, 1):
             row = row0 + dr
@@ -138,12 +151,24 @@ def backward_map_frame_plain(
             best_key = torch.where(take, key, best_key)
             best_qx = torch.where(take, cqx, best_qx)
             best_qy = torch.where(take, cqy, best_qy)
+            in_grid.append((inside, key))
     shape = (frame_height, frame_width)
-    return BackwardMap(
+    bmap = BackwardMap(
         map_x=best_qx.reshape(shape),
         map_y=best_qy.reshape(shape),
         covered=(best_key >= 0).reshape(shape),
     )
+    if not return_work:
+        return bmap
+    steps = 1 + (keys[1] != keys[0]).int() + (keys[2] != keys[1]).int()
+    tested = [inside & (key >= best_key) for inside, key in in_grid]
+    work = {
+        "lookups": steps + 1,
+        "homographies": steps + sum((t & (key != keys[2])).int()
+                                    for t, (_, key) in zip(tested, in_grid)),
+        "candidates": sum(t.int() for t in tested),
+    }
+    return bmap, {name: v.reshape(shape) for name, v in work.items()}
 
 
 def backward_map_plain(
@@ -152,20 +177,28 @@ def backward_map_plain(
     config: MeshFlowConfig,
     frame_height: int,
     frame_width: int,
-) -> BackwardMap:
+    return_work: bool = False,
+):
     """Plain backward map of one frame ((R+1, C+1, 2)) or of a batch
-    ((F, R+1, C+1, 2)), one frame at a time."""
+    ((F, R+1, C+1, 2)), one frame at a time; with return_work, also the
+    work each pixel's result needs (``backward_map_frame_plain``)."""
     table = cell_table(
         cell_inverse_homographies(stab_pos, unstab_grid, config),
         config, frame_height, frame_width,
     )
     if table.dim() == 2:
-        return backward_map_frame_plain(table, config, frame_height, frame_width)
-    maps = [
-        backward_map_frame_plain(t, config, frame_height, frame_width)
+        return backward_map_frame_plain(
+            table, config, frame_height, frame_width, return_work
+        )
+    outs = [
+        backward_map_frame_plain(t, config, frame_height, frame_width, return_work)
         for t in table
     ]
-    return BackwardMap(*(torch.stack(parts) for parts in zip(*maps)))
+    if not return_work:
+        return BackwardMap(*(torch.stack(parts) for parts in zip(*outs)))
+    maps, works = zip(*outs)
+    return (BackwardMap(*(torch.stack(parts) for parts in zip(*maps))),
+            {name: torch.stack([w[name] for w in works]) for name in works[0]})
 
 
 def bilinear_sample(

@@ -12,13 +12,14 @@ LK kernels sum their windows in another order than the plain version
 (warp shuffles), so status agreement >= 0.99 and p99 endpoint distance
 <= 0.02 px; kernel C computes kernel A's operations in kernel A's order
 from a staged copy of the same bytes, so the two are bit-identical; the
-backward-map kernel performs the plain version's float
-operations in the same order without contraction, so coverage and crop
-edges are equal and maps within 1e-4 px.  The probe kernels (D-G) move
-or select values without arithmetic, or (D's fine select) sum in the plain
-version's order without contraction, so they equal their plain versions
-bit for bit; D's fine select with a random selection matrix within 1e-5
-relative.
+backward-map kernel builds its cell table and maps each pixel with the
+plain version's float operations in the same order without contraction
+(tests/test_torch_bmap_exact.py shows the arrangement on the CPU), so its
+maps, coverage and crop edges are equal to the plain version's.  The probe
+kernels (D-G) move or select values without arithmetic, or (D's fine
+select) sum in the plain version's order without contraction, so they
+equal their plain versions bit for bit; D's fine select with a random
+selection matrix within 1e-5 relative.
 """
 
 import ctypes
@@ -297,31 +298,81 @@ def test_band_kernel_matches_plain_and_kernel_a_on_card(monkeypatch, th, tw, max
     assert torch.equal(cp[~v], pts[:-1][~v]) and not cst[~v].any()
 
 
+def _bmap_inputs(dev, mesh, h, w, scale, frames=None, degenerate=False):
+    config = MeshFlowConfig(mesh_row_count=mesh, mesh_col_count=mesh)
+    rng = np.random.default_rng(mesh + int(scale))
+    unstab = grid.vertex_grid(config, h, w)
+    shape = tuple(unstab.shape) if frames is None else (frames,) + tuple(unstab.shape)
+    stab = unstab + torch.from_numpy(rng.normal(0.0, scale, shape).astype(np.float32))
+    if degenerate:
+        from test_torch_bmap_exact import _degenerate
+
+        stab = _degenerate(stab, rng)
+    return config, stab.to(dev), unstab.to(dev)
+
+
+def _assert_bmap_equal(kb, pb, h, w):
+    assert torch.equal(kb.covered, pb.covered)
+    assert torch.equal(kb.map_x, pb.map_x) and torch.equal(kb.map_y, pb.map_y)
+    assert torch.equal(crop_edges(kb, h, w), crop_edges(pb, h, w))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "mesh,h,w,scale", [(16, 360, 640, 1.5), (16, 360, 640, 12.0), (64, 1080, 1920, 3.0)]
 )
 def test_bmap_kernel_matches_plain_on_card(mesh, h, w, scale):
-    dev = _card()
-    config = MeshFlowConfig(mesh_row_count=mesh, mesh_col_count=mesh)
-    rng = np.random.default_rng(mesh + int(scale))
-    unstab = grid.vertex_grid(config, h, w, device=dev)
-    stab = unstab + torch.from_numpy(
-        rng.normal(0.0, scale, tuple(unstab.shape)).astype(np.float32)
-    ).to(dev)
+    config, stab, unstab = _bmap_inputs(_card(), mesh, h, w, scale)
     before = bmap_cuda.backward_map.launches
     kb = bmap_cuda.backward_map(stab, unstab, config, h, w)
     pb = bmap_cuda.backward_map_plain(stab, unstab, config, h, w)
     assert bmap_cuda.backward_map.launches == before + 1
-    assert torch.equal(kb.covered, pb.covered)
-    cov = pb.covered
-    assert (kb.map_x - pb.map_x)[cov].abs().max().item() <= 1e-4
-    assert (kb.map_y - pb.map_y)[cov].abs().max().item() <= 1e-4
-    assert torch.equal(crop_edges(kb, h, w), crop_edges(pb, h, w))
+    _assert_bmap_equal(kb, pb, h, w)
     # a batch of frames in one launch equals the frames one at a time
     batch = torch.stack([stab, unstab + 0.5 * (stab - unstab)])
     kbb = bmap_cuda.backward_map(batch, unstab, config, h, w)
     assert torch.equal(kbb.covered[0], kb.covered) and torch.equal(kbb.map_x[0], kb.map_x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,h,w,scale,frames,degenerate", [
+    (64, 1080, 1920, 3.0, 3, False),  # a 64x64 batch: the table read through L1
+    (16, 360, 640, 3.0, 4, True),  # collapsed and far-outside vertices
+    (64, 61, 97, 0.7, 2, True),  # repeated grid lines (H - 1 < 64), odd width
+])
+def test_bmap_kernel_batches_match_plain_on_card(mesh, h, w, scale, frames, degenerate):
+    config, stab, unstab = _bmap_inputs(_card(), mesh, h, w, scale, frames, degenerate)
+    kb = bmap_cuda.backward_map(stab, unstab, config, h, w)
+    pb = bmap_cuda.backward_map_plain(stab, unstab, config, h, w)
+    _assert_bmap_equal(kb, pb, h, w)
+    if degenerate:
+        assert not pb.covered.all()
+
+
+@pytest.mark.cuda
+def test_bmap_call_is_one_launch_after_allocations_only_on_card(monkeypatch):
+    """One backward_map call on CUDA tensors: the PyTorch ops it dispatches
+    are the allocations of its outputs and table workspace, all before its
+    one call of the entry point."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    config, stab, unstab = _bmap_inputs(_card(), 16, 360, 640, 1.5, frames=8)
+    events = []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            events.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    launch = _launch.launch
+    monkeypatch.setattr(_launch, "launch", lambda *a: (events.append(a[0]), launch(*a))[1])
+    bmap_cuda.backward_map(stab, unstab, config, 360, 640)  # the library is loaded
+    before = bmap_cuda.backward_map.launches
+    events.clear()
+    with Ops():
+        bmap_cuda.backward_map(stab, unstab, config, 360, 640)
+    assert events == ["aten.empty.memory_format"] * 4 + ["meshflow_bmap"]
+    assert bmap_cuda.backward_map.launches == before + 1
 
 
 def _equal(got, want):
@@ -370,6 +421,22 @@ def test_probe_f_kernel_is_exact_on_card(nrows):
     cells[0, :3] = torch.tensor([-1, 256, 255], dtype=torch.int32)  # outside the table: zeros
     got = select_rows.select_rows(table, cells)
     assert torch.equal(got, select_rows.select_rows_plain(table, cells))
+
+
+@pytest.mark.cuda
+def test_probe_f_kernel_is_exact_on_general_float32_on_card():
+    """Every float32 bit pattern (NaN, inf, subnormals, -0.0) comes back as
+    it is, compared as bits; K and N beyond the probe's."""
+    dev = _card()
+    _, cells = select_rows.probe_inputs(432)
+    wide = cells[:, :1212] * 4  # K 1100, N 1212, 37 rows (a partial strip)
+    wide[0, :2] = torch.tensor([-5, 1100], dtype=torch.int32)
+    for table, cells in ((select_rows.general_table(432), cells),
+                         (select_rows.general_table(37, cells_pad=1100), wide)):
+        table, cells = table.to(dev), cells.to(dev)
+        got = select_rows.select_rows(table, cells)
+        want = select_rows.select_rows_plain(table, cells)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
