@@ -41,8 +41,9 @@ From the root of a checkout, on a machine with one CUDA card:
 11. the probes: ``python -m meshflow_tpu_torch.probes`` with the six
    probe kernels' launch counts set to 0 before it (probe F also on
    general float32 values), then each probe kernel against its plain
-   version (bit for bit; probe D's fine select with a random selection
-   within 1e-5 relative).
+   version, bit for bit (probe D's fine select with a one-hot and a random
+   selection at 4 to 128 features and 1 to 50 rounds; probe E at every
+   start of its plane and at widths 4 to 1024).
 
 Each kernel's bound is the larger of its operations over the H100's
 float32 rate and its bytes over its memory rate; for the LK kernels the
@@ -67,8 +68,11 @@ cases, kernel B at step 4's cases (device and host-clock ms per call at
 the timed ones), and the 640x360 main path (cold, then three warm
 passes), each tree in a process of its own, in the order DIR, this, this,
 DIR.  It checks that both trees give the same bytes (kernel A's track,
-kernel B's outputs and the main path's output) and prints the times.
-``--parts lk,bmap,main`` runs only the parts named.
+kernel B's outputs, the main path's output and the timed probe kernels'
+outputs) and prints the times.  ``--parts lk,bmap,main,probes`` runs only
+the parts named; ``probes`` times probe D's copy and fine select at 16,
+64 and 128 features and probe E at the probe's r0, beside the PyTorch
+calls of the same functions.
 """
 
 from __future__ import annotations
@@ -913,14 +917,23 @@ def probe_bound(kernel, case):
     return bound(2 * n, 4 * (n + rows * g.W + n * g.W))  # corners[:, 0], rows, out
 
 
+# D's fine select is held bit for bit at these feature counts and rounds
+# a launch (1: one round; 2 and 5: both buffer parities; 50: the probe's),
+# E at these plane widths
+FINE_SIZES = (4, 16, 64, 128)
+FINE_REPS = (1, 2, 5, 50)
+ALIGNED_WIDTHS = (4, 256, 664, 1024)
+
+
 def phase_probes(device):
     """The probe entry point (``python -m meshflow_tpu_torch.probes``) on
     the card with the six probe kernels' counts set to 0 before it and
     read after it; then, with launches of their own, each kernel against
-    its plain version under the gates: bit-equal at the probes' sizes and
-    at clamped and wrapped starts (F also on general float32 values, in the
-    entry point), D's fine select with a random selection matrix within
-    1e-5 relative."""
+    its plain version under the gates, all bit for bit: at the probes'
+    sizes and at clamped and wrapped starts (F also on general float32
+    values, in the entry point), D's fine select with a one-hot and a
+    random selection matrix at FINE_SIZES and FINE_REPS, E at every start
+    and ALIGNED_WIDTHS."""
     import numpy as np
     import torch
 
@@ -952,26 +965,40 @@ def phase_probes(device):
                        f"(max abs err {r['max_abs_err']}) or the probe's answer is WRONG")
     err = {name: 0.0 for name in PROBE_KERNELS}
 
-    # clamped and wrapped starts, bit-equal; D's fine select with a random rsel
-    rng = np.random.default_rng(SEED)
+    # clamped and wrapped starts, bit-equal
     for b in d.SIZES:
         idx, plane = (t.to(device) for t in d.probe_inputs(b))
         idx[:4] = torch.tensor([320, 640, -16, -100], dtype=torch.int32, device=device)
         for name in ("dynslice_copy", "onehot_rowsel"):
             got, want = getattr(d, name)(idx, plane), getattr(d, name + "_plain")(idx, plane)
             check(all(torch.equal(x, y) for x, y in zip(got, want)), f"{name} B={b} differs")
-        rsel = torch.from_numpy(rng.random((b, d.PN, d.BAND_R), np.float32)).to(device)
-        got, want = d.dynslice_fine(idx, plane, rsel), d.dynslice_fine_plain(idx, plane, rsel)
-        rel = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
-        err["dynslice_fine"] = max(err["dynslice_fine"], (got[2] - want[2]).abs().max().item())
-        print(f"probe D fine B={b}, random rsel: max rel err {rel:.3e}, bands equal "
-              f"{torch.equal(got[1], want[1])}")
-        check(torch.equal(got[1], want[1]) and rel <= 1e-5, f"dynslice_fine B={b} rel err {rel}")
-    plane, _ = (t.to(device) for t in e.probe_inputs())
-    for row in (0, 7, 233, 239, 240, 250, 255, -3):
-        r0 = torch.tensor([row], dtype=torch.int32, device=device)
-        check(torch.equal(e.aligned_rows(plane, r0), e.aligned_rows_plain(plane, r0)),
-              f"aligned_dynslice r0={row} differs")
+    # D's fine select bit for bit, one-hot and random rsel, one round, both
+    # buffer parities, the probe's 50 rounds
+    rng = np.random.default_rng(SEED)
+    for b in FINE_SIZES:
+        idx, plane = (t.to(device) for t in d.probe_inputs(b))
+        idx[:4] = torch.tensor([320, 640, -16, -100], dtype=torch.int32, device=device)
+        random = torch.from_numpy(rng.random((b, d.PN, d.BAND_R), np.float32))
+        for kind, rsel in (("one-hot", d.one_hot_rsel(b, seed=1)), ("random", random)):
+            rsel = rsel.to(device)
+            for reps in FINE_REPS:
+                got = d.dynslice_fine(idx, plane, rsel, reps)
+                want = d.dynslice_fine_plain(idx, plane, rsel, reps)
+                err["dynslice_fine"] = max(err["dynslice_fine"], entry.max_abs_err(got, want))
+                check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                      f"dynslice_fine B={b} {kind} rsel reps={reps} differs "
+                      f"(max abs err {entry.max_abs_err(got, want)})")
+        print(f"probe D fine B={b}: out, bands and rows equal to the plain version "
+              f"(one-hot and random rsel, reps {FINE_REPS})")
+    # E at every start of a 256-row plane, wrapped ones too, and at widths
+    # past the 512 of shared memory the earlier kernel staged
+    for w in ALIGNED_WIDTHS:
+        plane = torch.arange(e.H * w, dtype=torch.float32, device=device).reshape(e.H, w)
+        for row in range(-3, e.H):
+            r0 = torch.tensor([row], dtype=torch.int32, device=device)
+            check(torch.equal(e.aligned_rows(plane, r0), e.aligned_rows_plain(plane, r0)),
+                  f"aligned_dynslice W={w} r0={row} differs")
+    print(f"probe E: equal to the plain version at r0 -3..{e.H - 1}, W {ALIGNED_WIDTHS}")
     plane, _ = (t.to(device) for t in g.probe_inputs())
     corners = g.corners_from([0.0, 3.7, 20.0, 24.0, 27.0, 31.4, -1.2, 10.0]).to(device)
     check(torch.equal(g.band_row(plane, corners), g.band_row_plain(plane, corners)),
@@ -996,6 +1023,8 @@ def phase_probes(device):
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": main["library_ms"],
         }
+        if name == "dynslice_fine":  # library_ms: 50 x (band gather + bmm)
+            out[name]["library_ms_bmm_only"] = main["bmm_ms"]
     return out
 
 
@@ -1013,7 +1042,45 @@ def ptxas_report(log: str, *match: str) -> list[str]:
     return out
 
 
-TREE_PARTS = ("lk", "bmap", "main")
+TREE_PARTS = ("lk", "bmap", "main", "probes")
+# The probe D launches that the "probes" part times, (kernel, B); probe E
+# is timed at the probe's r0
+TREE_PROBES = (("copy", 16), ("copy", 64), ("copy", 128), ("fine", 16), ("fine", 64),
+               ("fine", 128))
+
+
+def probe_tree_times(kernel_ms):
+    """The "probes" part of `tree_run`: device ms per launch of D copy and
+    D fine at TREE_PROBES and of E at the probe's r0, beside the library
+    calls of the same function (D fine: 50 bmm alone and 50 x (band gather
+    + bmm); E: slice + clone); returns a digest of every timed kernel's
+    outputs."""
+    import torch
+
+    from meshflow_tpu_torch.probes import aligned_dynslice as e, dynslice_fetch as d
+
+    outputs = []
+    for kind, b in TREE_PROBES:
+        idx, plane = (t.to("cuda") for t in d.probe_inputs(b))
+        args = (idx, plane)
+        if kind == "fine":
+            args += (d.one_hot_rsel(b).to("cuda"),)
+        fn = getattr(d, f"dynslice_{kind}")
+        outputs += fn(*args)
+        kernel_ms[f"D {kind} B={b}"] = device_ms(lambda: fn(*args), launches=20)
+        if kind == "fine":
+            index = [d.band_index(idx, r, *plane.shape) for r in range(d.REPS)]
+            bands = plane[index[-1]]
+            kernel_ms[f"D fine B={b} library bmm"] = device_ms(
+                lambda: [torch.bmm(args[2], bands) for _ in range(d.REPS)], launches=20)
+            kernel_ms[f"D fine B={b} library gather+bmm"] = device_ms(
+                lambda: [torch.bmm(args[2], plane[i]) for i in index], launches=20)
+    plane, r0 = (t.to("cuda") for t in e.probe_inputs())
+    outputs.append(e.aligned_rows(plane, r0))
+    kernel_ms["E r0=37"] = device_ms(lambda: e.aligned_rows(plane, r0), launches=20)
+    kernel_ms["E library slice+clone"] = device_ms(
+        lambda: plane[e.PROBE_ROW : e.PROBE_ROW + e.ROWS].clone(), launches=20)
+    return digest(*outputs)
 
 
 def tree_run(tree: Path, parts=TREE_PARTS, warm_passes: int = 3) -> int:
@@ -1025,8 +1092,9 @@ def tree_run(tree: Path, parts=TREE_PARTS, warm_passes: int = 3) -> int:
     (the tree's ``lk_cuda.occupancy()``).  "bmap": kernel B's outputs at
     every BMAP_CASES case (digest), device ms and host-clock ms per call at
     the timed cases.  "main": the 640x360 main path's output digest, crop,
-    metrics and wall times.  Always the ptxas lines of the tree's LK and
-    backward-map kernels (when its build keeps them)."""
+    metrics and wall times.  "probes": `probe_tree_times`.  Always the
+    ptxas lines of the tree's LK, backward-map and D and E probe kernels
+    (when its build keeps them)."""
     sys.path.insert(0, str(tree))
     import torch
 
@@ -1035,7 +1103,8 @@ def tree_run(tree: Path, parts=TREE_PARTS, warm_passes: int = 3) -> int:
     from meshflow_tpu_torch.kernels import _build, bmap_cuda, lk_cuda
 
     result = {"package": str(Path(meshflow_tpu_torch.__file__).parent),
-              "ptxas": ptxas_report(_build.build()["log"], "lk_", "map_kernel", "table_kernel"),
+              "ptxas": ptxas_report(_build.build()["log"], "lk_", "map_kernel", "table_kernel",
+                                   "dynslice", "aligned"),
               "kernel_ms": {}, "host_ms": {}}
     kernel_ms = result["kernel_ms"]
     if "lk" in parts:
@@ -1060,6 +1129,8 @@ def tree_run(tree: Path, parts=TREE_PARTS, warm_passes: int = 3) -> int:
         result["bmap"] = digest(*outputs)
         for name in BMAP_TIMED:
             kernel_ms[f"B {name}"], result["host_ms"][f"B {name}"] = bmap_times("cuda", name)
+    if "probes" in parts:
+        result["probes"] = probe_tree_times(kernel_ms)
     if "main" in parts:
         frames = torch.from_numpy(synthetic_clip(300, 360, 640, pan=120)).to("cuda")
         stab = MeshFlowStabilizer(device="cuda")
@@ -1091,7 +1162,7 @@ def compare_trees(other: Path, here: Path, parts=TREE_PARTS) -> int:
         sys.stdout.write(res.stdout)
         check(res.returncode == 0, f"the run of {tree} exited {res.returncode}")
         runs.append(dict(json.loads(res.stdout.strip().splitlines()[-1]), tree=str(tree)))
-    for key in ("kernel_a", "bmap", "main_path"):
+    for key in ("kernel_a", "bmap", "main_path", "probes"):
         if key in runs[0]:
             check(len({r[key] for r in runs}) == 1, f"the trees' {key} outputs differ")
     warm, times = {}, {"kernel_ms": {}, "host_ms": {}}

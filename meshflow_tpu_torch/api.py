@@ -103,8 +103,15 @@ class MeshFlowStabilizer:
                 color_outside_image_area_bgr=tuple(color_outside_image_area_bgr),
                 visualize=visualize,
             )
-        if track_planes is not None and track_planes != config.track_planes:
+        # Tracking planes and checkpoints, as the JAX package reads them:
+        # constructor argument > MESHFLOW_TRACK_PLANES / MESHFLOW_CHECKPOINT_DIR
+        # (an empty value is ignored) > the config.
+        if track_planes is None:
+            track_planes = os.environ.get("MESHFLOW_TRACK_PLANES")
+        if track_planes and track_planes != config.track_planes:
             config = dataclasses.replace(config, track_planes=track_planes)
+        if checkpoint_dir is None:
+            checkpoint_dir = os.environ.get("MESHFLOW_CHECKPOINT_DIR") or None
         # Serving mode: constructor argument > MESHFLOW_COMPUTE_METRICS
         # (0, false, no or off disable it, in any case) > the config.
         if compute_metrics is None:

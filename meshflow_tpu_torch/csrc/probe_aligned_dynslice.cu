@@ -9,12 +9,16 @@
 // Near the bottom the band start is clamped while the shift r0 - base is
 // not, as in the probe, so r0 > H - 24 selects rows above r0.
 //
-// What bounds it: launch latency.  It moves 24 rows in and 16 out (40 KB
-// at W = 256).  Design: one block; r0 is read on the card (it is a
-// dynamic index), the 24-row band is staged in dynamic shared memory
-// (24 x W floats, 24 KB at W = 256) with 16-byte cp.async copies (the band
-// starts on a row and W % 4 == 0), then the 16 shifted rows are written
-// with 16-byte stores.
+// What bounds it on the H100: latency.  It moves 16 rows in and 16 out
+// (32 KB at W = 256), nanoseconds at the memory rate; what is left is the
+// launch and a chain of two dependent loads (r0, then the rows it
+// selects).  The band of the TPU kernel is only how a TPU reaches an
+// unaligned row: here any row is one address away.  Design: a direct
+// gather, no shared memory and no barrier.  Each thread moves one 16-byte
+// float4 of the result: it reads r0 (one address, cached for the whole
+// grid), computes its source row in closed form, loads and stores.  The
+// grid covers 16 x W/4 float4s, so W is limited only by W % 4 == 0 (rows
+// stay 16-byte aligned).
 
 #include <cuda_runtime.h>
 
@@ -24,36 +28,28 @@ namespace {
 
 constexpr int ROWS = 16;
 constexpr int BAND = ROWS + 8;
-constexpr int THREADS = 256;
-constexpr int MAX_W = 512;  // 48 KB of band, the dynamic shared memory a block gets unasked
+constexpr int THREADS = 128;
 
 __global__ void __launch_bounds__(THREADS)
-aligned_dynslice_kernel(const int* __restrict__ r0_ptr, const float* __restrict__ plane,
-                        int H, int W, float* __restrict__ out) {
-  extern __shared__ __align__(16) float band[];  // BAND x W
-  const int r0 = r0_ptr[0];
+aligned_dynslice_kernel(const int* __restrict__ r0_ptr, const float4* __restrict__ plane,
+                        int H, int wq, float4* __restrict__ out) {
+  const int q = blockIdx.x * THREADS + threadIdx.x;  // float4 of the result
+  if (q >= ROWS * wq) return;
+  const int r0 = __ldg(r0_ptr);
   const int base = probes::floor_div(r0, 8) * 8;
-  const int s = probes::dyn_start(base, H, BAND);
-  const int wq = W / 4;
-  for (int q = threadIdx.x; q < BAND * wq; q += THREADS)
-    probes::cp_async16(band + (q / wq) * W + (q % wq) * 4,
-                       plane + static_cast<long long>(s) * W + q * 4);
-  probes::cp_async_wait_all();
-  __syncthreads();
-  const int off = r0 - base;  // 0..7
-  for (int q = threadIdx.x; q < ROWS * wq; q += THREADS)
-    reinterpret_cast<float4*>(out)[q] =
-        reinterpret_cast<const float4*>(band + (off + q / wq) * W)[q % wq];
+  const int row = probes::dyn_start(base, H, BAND) + (r0 - base) + q / wq;
+  out[q] = __ldg(plane + static_cast<long long>(row) * wq + q % wq);
 }
 
 }  // namespace
 
 extern "C" int meshflow_probe_aligned_dynslice(const void* r0, const void* plane, void* out,
                                                int H, int W, void* stream) {
-  if (W > MAX_W || W % 4 != 0 || H < BAND) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = BAND * W * static_cast<int>(sizeof(float));
-  aligned_dynslice_kernel<<<1, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(r0), static_cast<const float*>(plane), H, W,
-      static_cast<float*>(out));
+  if (W < 4 || W % 4 != 0 || H < BAND) return static_cast<int>(cudaErrorInvalidValue);
+  const int wq = W / 4;
+  const int blocks = (ROWS * wq + THREADS - 1) / THREADS;
+  aligned_dynslice_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(r0), static_cast<const float4*>(plane), H, wq,
+      static_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }

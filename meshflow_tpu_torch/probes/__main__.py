@@ -112,7 +112,12 @@ def run_dynslice_fetch(device) -> list:
         args = (idx, plane)
         library = bmm = None
         if name == "dynslice_fine":
-            args += (d.one_hot_rsel(b).to(device),)
+            rsel = d.one_hot_rsel(b).to(device)
+            args += (rsel,)
+            index = [d.band_index(idx, r, *plane.shape) for r in range(d.REPS)]
+
+            def library():
+                return [torch.bmm(rsel, plane[rows, cols]) for rows, cols in index]
         if name == "dynslice_copy":
             index = [d.band_index(idx, r, *plane.shape) for r in range(d.REPS)]
 
@@ -136,7 +141,7 @@ def run_dynslice_fetch(device) -> list:
             print(f"{label} (B={b}): plain version on {device.type}, out sum "
                   f"{got[0].sum().item():.4f}", flush=True)
             continue
-        extra = f", bmm x{d.REPS} {_us(bmm, d.REPS)}/round" if bmm is not None else ""
+        extra = f" (bmm alone {_us(bmm, d.REPS)}/round)" if bmm is not None else ""
         print(
             f"{label} (B={b}): {_us(times['ms'], d.REPS)}/round "
             f"({_us(times['ms'], d.REPS * b)}/feature); plain {_us(times['plain_ms'], d.REPS)}"

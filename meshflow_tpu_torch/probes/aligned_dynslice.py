@@ -8,7 +8,9 @@ CUDA tensors and taking ``aligned_rows_plain`` for CPU tensors;
 the 24-row band starts at ``dyn_start(base, H, 24)`` and the result is its
 rows ``r0 - base .. r0 - base + 15``: ``plane[r0 : r0 + 16]`` for
 0 <= r0 <= H - 17, rows above r0 below that, where the band start is
-clamped and the shift is not.
+clamped and the shift is not.  The kernel takes any plane of H >= 24 rows
+and W >= 4 columns with W % 4 == 0 (a direct gather of 16-byte pieces);
+the wrapper raises ValueError for any other.
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ def aligned_rows(plane: torch.Tensor, r0: torch.Tensor) -> torch.Tensor:
     """The (16, W) rows the probe selects at r0 (an int32 tensor (1,))."""
     if on_cpu(plane, r0):
         return aligned_rows_plain(plane, r0)
-    if plane.dim() != 2 or plane.shape[0] < BAND or plane.shape[1] % 4 or not 4 <= plane.shape[1] <= 512:
-        raise ValueError("aligned_rows: needs a 2-D plane of >= 24 rows and W % 4 == 0, W <= 512")
+    if plane.dim() != 2 or plane.shape[0] < BAND or plane.shape[1] % 4 or plane.shape[1] < 4:
+        raise ValueError("aligned_rows: needs a 2-D plane of >= 24 rows and W >= 4, W % 4 == 0")
     h, w = plane.shape
     device = require("aligned_rows", (plane, torch.float32, (h, w)), (r0, torch.int32, (1,)))
     out = torch.empty(ROWS, w, dtype=torch.float32, device=device)

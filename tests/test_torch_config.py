@@ -179,3 +179,35 @@ def test_compute_metrics_env(monkeypatch):
         assert MeshFlowStabilizer(device="cpu", compute_metrics=True).config.compute_metrics
     monkeypatch.delenv("MESHFLOW_COMPUTE_METRICS")
     assert MeshFlowStabilizer(device="cpu").config.compute_metrics
+
+
+@pytest.mark.parametrize("env,kwargs,raises", [
+    ({"MESHFLOW_TRACK_PLANES": "gray"}, {}, True),
+    ({"MESHFLOW_TRACK_PLANES": "bgr"}, {}, False),
+    ({"MESHFLOW_TRACK_PLANES": ""}, {}, False),
+    ({"MESHFLOW_TRACK_PLANES": "gray"}, {"track_planes": "bgr"}, False),
+    ({"MESHFLOW_CHECKPOINT_DIR": "TMP"}, {}, True),
+    ({"MESHFLOW_CHECKPOINT_DIR": ""}, {}, False),
+], ids=["planes-gray", "planes-bgr", "planes-empty", "argument-wins", "checkpoint",
+        "checkpoint-empty"])
+def test_track_planes_and_checkpoint_env(monkeypatch, tmp_path, env, kwargs, raises):
+    """The port reads MESHFLOW_TRACK_PLANES and MESHFLOW_CHECKPOINT_DIR with
+    the JAX constructor's priority (argument > environment > config); where
+    JAX would then track gray planes or keep checkpoints, which the port
+    does not have yet, it raises instead of running on the defaults."""
+    from meshflow_tpu.api import MeshFlowStabilizer as JaxStabilizer
+
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+
+    for name in ("MESHFLOW_TRACK_PLANES", "MESHFLOW_CHECKPOINT_DIR"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, str(tmp_path) if value == "TMP" else value)
+    js = JaxStabilizer(**kwargs)
+    assert (js.config.track_planes != "bgr" or js.checkpoint_dir is not None) is raises
+    if raises:
+        with pytest.raises(NotImplementedError):
+            MeshFlowStabilizer(device="cpu", **kwargs)
+    else:
+        assert MeshFlowStabilizer(device="cpu", **kwargs).config == interop.config_from_fields(
+            dataclasses.asdict(js.config))

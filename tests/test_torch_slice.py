@@ -124,6 +124,21 @@ def test_slice_matches_jax_tiny(monkeypatch):
     _compare_slice(monkeypatch, TINY, num_frames=12, h=180, w=320, variant=0)
 
 
+@pytest.mark.parametrize("chunk,num_frames", [
+    (4, 10),
+    pytest.param(8, 21, marks=pytest.mark.slow),
+])
+def test_slice_matches_jax_across_blocks(monkeypatch, chunk, num_frames):
+    """Three or more render / metric blocks with a short last one: the
+    video crop is the intersection of the blocks' crops, each metric block
+    draws from the key at its own frame offset, and the last block is cut
+    to the frames that are left."""
+    for cls in (JaxStabilizer, MeshFlowStabilizer):
+        monkeypatch.setattr(cls, "CHUNK", chunk)
+    assert num_frames > 2 * chunk and num_frames % chunk
+    _compare_slice(monkeypatch, TINY, num_frames=num_frames, h=180, w=320, variant=0)
+
+
 @pytest.mark.slow
 def test_slice_matches_jax_default_640x360(monkeypatch):
     _compare_slice(monkeypatch, {}, num_frames=24, h=360, w=640, variant=0)
