@@ -41,9 +41,13 @@ From the root of a checkout, on a machine with one CUDA card:
 11. the probes: ``python -m meshflow_tpu_torch.probes`` with the six
    probe kernels' launch counts set to 0 before it (probe F also on
    general float32 values), then each probe kernel against its plain
-   version, bit for bit (probe D's fine select with a one-hot and a random
-   selection at 4 to 128 features and 1 to 50 rounds; probe E at every
-   start of its plane and at widths 4 to 1024).
+   version, bit for bit (probe D's copy and one-hot at 4 to 128 features,
+   1 to RING + 1 and 50 rounds, one-hot rows inside, past and before the
+   plane; its fine select with a one-hot and a random selection at 4 to
+   128 features and 1 to 50 rounds; probe E at every start of its plane
+   and at widths 4 to 1024); and each D kernel's marginal round at B = 16,
+   (t50 - t1) / 49, gated at no less than the round's bytes over the
+   card's aggregate shared-memory rate, so that no round is skipped.
 
 Each kernel's bound is the larger of its operations over the H100's
 float32 rate and its bytes over its memory rate; for the LK kernels the
@@ -71,7 +75,8 @@ DIR.  It checks that both trees give the same bytes (kernel A's track,
 kernel B's outputs, the main path's output and the timed probe kernels'
 outputs) and prints the times.  ``--parts lk,bmap,main,probes`` runs only
 the parts named; ``probes`` times probe D's copy and fine select at 16,
-64 and 128 features and probe E at the probe's r0, beside the PyTorch
+64 and 128 features, its one-hot select at 16 (all three at 16 also at
+one round a launch) and probe E at the probe's r0, beside the PyTorch
 calls of the same functions.
 """
 
@@ -923,6 +928,20 @@ def probe_bound(kernel, case):
 FINE_SIZES = (4, 16, 64, 128)
 FINE_REPS = (1, 2, 5, 50)
 ALIGNED_WIDTHS = (4, 256, 664, 1024)
+# D copy and one-hot are held bit for bit at FINE_SIZES and at every
+# rounds a launch from 1 to one past their ring of RING rounds in flight,
+# and the probe's 50 (set in phase_probes); one-hot at its probe start and
+# at starts whose rows run past the plane (300), start past it (320) and
+# start before it (-5)
+ONEHOT_STARTS = (300, 320, -5)
+
+
+def smi_query(field: str) -> str:
+    """One field of ``nvidia-smi --query-gpu`` for the first card."""
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0 and res.stdout.strip(), f"nvidia-smi gave no {field}")
+    return res.stdout.strip().splitlines()[0]
 
 
 def phase_probes(device):
@@ -931,9 +950,11 @@ def phase_probes(device):
     read after it; then, with launches of their own, each kernel against
     its plain version under the gates, all bit for bit: at the probes'
     sizes and at clamped and wrapped starts (F also on general float32
-    values, in the entry point), D's fine select with a one-hot and a
-    random selection matrix at FINE_SIZES and FINE_REPS, E at every start
-    and ALIGNED_WIDTHS."""
+    values, in the entry point), D copy and one-hot at FINE_SIZES, 1 to
+    RING + 1 and 50 rounds and ONEHOT_STARTS, D's fine select with a
+    one-hot and a random selection matrix at FINE_SIZES and FINE_REPS, E
+    at every start and ALIGNED_WIDTHS; then the marginal round of each D
+    kernel at B = 16 against its floor."""
     import numpy as np
     import torch
 
@@ -965,13 +986,29 @@ def phase_probes(device):
                        f"(max abs err {r['max_abs_err']}) or the probe's answer is WRONG")
     err = {name: 0.0 for name in PROBE_KERNELS}
 
-    # clamped and wrapped starts, bit-equal
-    for b in d.SIZES:
+    # D copy and one-hot bit for bit: clamped and wrapped copy starts,
+    # one-hot rows inside, past and before the plane, every rounds a launch
+    # up to one past the ring and the probe's 50
+    copy_reps = tuple(range(1, d.RING + 2)) + (d.REPS,)
+    for b in FINE_SIZES:
         idx, plane = (t.to(device) for t in d.probe_inputs(b))
+        starts = (int(idx[0]),) + ONEHOT_STARTS
         idx[:4] = torch.tensor([320, 640, -16, -100], dtype=torch.int32, device=device)
-        for name in ("dynslice_copy", "onehot_rowsel"):
-            got, want = getattr(d, name)(idx, plane), getattr(d, name + "_plain")(idx, plane)
-            check(all(torch.equal(x, y) for x, y in zip(got, want)), f"{name} B={b} differs")
+        for reps in copy_reps:
+            got, want = d.dynslice_copy(idx, plane, reps), d.dynslice_copy_plain(idx, plane, reps)
+            err["dynslice_copy"] = max(err["dynslice_copy"], entry.max_abs_err(got, want))
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"dynslice_copy B={b} reps={reps} differs")
+            for start in starts:
+                first = idx.clone()
+                first[0] = start
+                got = d.onehot_rowsel(first, plane, reps)
+                want = d.onehot_rowsel_plain(first, plane, reps)
+                err["onehot_rowsel"] = max(err["onehot_rowsel"], entry.max_abs_err(got, want))
+                check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                      f"onehot_rowsel B={b} idx[0]={start} reps={reps} differs")
+        print(f"probe D copy and one-hot B={b}: equal to the plain versions at reps "
+              f"{copy_reps}, one-hot idx[0] {starts}")
     # D's fine select bit for bit, one-hot and random rsel, one round, both
     # buffer parities, the probe's 50 rounds
     rng = np.random.default_rng(SEED)
@@ -1004,6 +1041,37 @@ def phase_probes(device):
     check(torch.equal(g.band_row(plane, corners), g.band_row_plain(plane, corners)),
           "scalar_from_vmem differs at clamped and wrapped bases")
 
+    # every round does its work: the marginal round of each D kernel at
+    # the probe's B = 16 against the round's bytes over the card's
+    # aggregate shared-memory rate (128 B an SM and clock at the top SM
+    # clock), which a kernel that skipped rounds would beat
+    name_power = smi_query("name,power.limit")
+    mhz = float(smi_query("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    smem_rate = sms * 128 * mhz * 1e6  # bytes/s
+    idx, plane = (t.to(device) for t in d.probe_inputs(16))
+    rsel = d.one_hot_rsel(16).to(device)
+    # the bytes a round fetches on chip: 16 bands of 48 x 256, or 16 x 40 rows
+    band, rows = 4 * 16 * d.BAND_R * d.BAND_C, 4 * 16 * d.PN * plane.shape[1]
+    marginal = {}
+    for name, fn, nbytes in (
+        ("dynslice_copy", lambda n: d.dynslice_copy(idx, plane, n), band),
+        ("dynslice_fine", lambda n: d.dynslice_fine(idx, plane, rsel, n), band),
+        ("onehot_rowsel", lambda n: d.onehot_rowsel(idx, plane, n), rows),
+    ):
+        one = device_ms(lambda: fn(1), launches=20)
+        many = device_ms(lambda: fn(d.REPS), launches=20)
+        ms = (many - one) / (d.REPS - 1)
+        floor_ms = nbytes / smem_rate * 1e3
+        marginal[name] = {"marginal_round_ms": ms, "round_bytes": nbytes,
+                          "marginal_round_tb_s": nbytes / ms * 1e-9}
+        print(f"probe {name} B=16 marginal round: ({many:.5f} - {one:.5f}) / {d.REPS - 1} = "
+              f"{ms * 1e3:.4f} us for {nbytes} B, {nbytes / ms * 1e-9:.3f} TB/s; floor "
+              f"{floor_ms * 1e3:.4f} us ({sms} SMs x 128 B x {mhz:.0f} MHz = "
+              f"{smem_rate * 1e-12:.2f} TB/s; {name_power})")
+        check(ms >= floor_ms, f"{name}: marginal round {ms} ms below the floor {floor_ms} ms "
+                              "of the shared-memory rate: rounds are skipped")
+
     out = {}
     for name, (_, case, replaces) in PROBE_KERNELS.items():
         rows = [r for r in results if r["kernel"] == name]
@@ -1011,7 +1079,7 @@ def phase_probes(device):
             bms, by = probe_bound(name, r["case"])
             library = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
             per_round = (f" ({r['ms'] / d.REPS:.6f} ms per round)"
-                         if name in ("dynslice_copy", "dynslice_fine") else "")
+                         if name in ("dynslice_copy", "dynslice_fine", "onehot_rowsel") else "")
             print(f"probe {name} {r['case']}: kernel {r['ms']:.5f} ms{per_round} (host enqueue "
                   f"{r['host_ms']:.5f} ms), plain {r['plain_ms']:.5f} ms, library {library}, "
                   f"bound {bms:.6f} ms ({by}), max abs err {r['max_abs_err']}")
@@ -1025,6 +1093,7 @@ def phase_probes(device):
         }
         if name == "dynslice_fine":  # library_ms: 50 x (band gather + bmm)
             out[name]["library_ms_bmm_only"] = main["bmm_ms"]
+        out[name].update(marginal.get(name, {}))
     return out
 
 
@@ -1046,15 +1115,16 @@ TREE_PARTS = ("lk", "bmap", "main", "probes")
 # The probe D launches that the "probes" part times, (kernel, B); probe E
 # is timed at the probe's r0
 TREE_PROBES = (("copy", 16), ("copy", 64), ("copy", 128), ("fine", 16), ("fine", 64),
-               ("fine", 128))
+               ("fine", 128), ("onehot", 16))
 
 
 def probe_tree_times(kernel_ms):
-    """The "probes" part of `tree_run`: device ms per launch of D copy and
-    D fine at TREE_PROBES and of E at the probe's r0, beside the library
-    calls of the same function (D fine: 50 bmm alone and 50 x (band gather
-    + bmm); E: slice + clone); returns a digest of every timed kernel's
-    outputs."""
+    """The "probes" part of `tree_run`: device ms per launch of D copy, D
+    fine and D one-hot at TREE_PROBES (at B = 16 also at one round a
+    launch, "reps=1") and of E at the probe's r0, beside the library calls
+    of the same function (D copy: 50 index gathers; D fine: 50 bmm alone
+    and 50 x (band gather + bmm); D one-hot: 50 index_select; E: slice +
+    clone); returns a digest of every timed kernel's outputs."""
     import torch
 
     from meshflow_tpu_torch.probes import aligned_dynslice as e, dynslice_fetch as d
@@ -1065,9 +1135,20 @@ def probe_tree_times(kernel_ms):
         args = (idx, plane)
         if kind == "fine":
             args += (d.one_hot_rsel(b).to("cuda"),)
-        fn = getattr(d, f"dynslice_{kind}")
+        fn = d.onehot_rowsel if kind == "onehot" else getattr(d, f"dynslice_{kind}")
         outputs += fn(*args)
         kernel_ms[f"D {kind} B={b}"] = device_ms(lambda: fn(*args), launches=20)
+        if b == 16:
+            kernel_ms[f"D {kind} B={b} reps=1"] = device_ms(lambda: fn(*args, 1), launches=20)
+        if kind == "copy":
+            index = [d.band_index(idx, r, *plane.shape) for r in range(d.REPS)]
+            kernel_ms[f"D copy B={b} library gathers"] = device_ms(
+                lambda: [plane[i] for i in index], launches=20)
+        if kind == "onehot":
+            k = torch.arange(b * d.PN, device="cuda") % d.PN
+            rows = [idx[0].long() + r % 4 + k for r in range(d.REPS)]
+            kernel_ms[f"D onehot B={b} library index_select"] = device_ms(
+                lambda: [plane.index_select(0, r) for r in rows], launches=20)
         if kind == "fine":
             index = [d.band_index(idx, r, *plane.shape) for r in range(d.REPS)]
             bands = plane[index[-1]]
@@ -1104,7 +1185,7 @@ def tree_run(tree: Path, parts=TREE_PARTS, warm_passes: int = 3) -> int:
 
     result = {"package": str(Path(meshflow_tpu_torch.__file__).parent),
               "ptxas": ptxas_report(_build.build()["log"], "lk_", "map_kernel", "table_kernel",
-                                   "dynslice", "aligned"),
+                                   "dynslice", "onehot", "aligned"),
               "kernel_ms": {}, "host_ms": {}}
     kernel_ms = result["kernel_ms"]
     if "lk" in parts:
@@ -1213,11 +1294,7 @@ def main() -> int:
         return tree_run(args.tree.resolve(), parts)
     sys.path.insert(0, str(repo))
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: none")
+    print(smi_query("name,power.limit"))
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     if args.compare is not None:

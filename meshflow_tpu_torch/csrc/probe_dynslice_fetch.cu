@@ -8,12 +8,42 @@
 // rounds (the probe's REPS = 50), so the time of one round is the launch
 // time over reps.
 //
+// Every round does its work.  The outputs are the last round's (one-hot's
+// out also sums every round's corner), but each round fetches its whole
+// band from the plane into shared memory with cp.async: an asm volatile
+// instruction whose effect is a write to shared memory, which neither the
+// compiler nor ptxas removes, whether or not a later round overwrites it.
+// A one-hot row outside the plane is a cp.async with a source size of 0,
+// which writes 16 bytes of zeros.  D fine stages with cp.async too and
+// stores every round's product with __stcg.
+//
 // * dynslice_copy: per round r and feature i, the 48x256 band at the
 //   8-aligned row and 128-aligned column of idx[2i], idx[2i+1] (shifted
 //   by r, as the probe shifts it), clamped into the plane by dyn_start.
-//   One block per feature stages its band in shared memory (48 KB) with
-//   16-byte cp.async copies: the column start is a multiple of 4 floats
-//   and a plane row of W % 4 == 0 floats keeps every row 16-byte aligned.
+//   The column start is a multiple of 4 floats and a plane row of
+//   W % 4 == 0 floats keeps every row 16-byte aligned.
+//   What bounds it: bytes into the SMs.  A round moves B * 48 KB and
+//   computes nothing.  The plane (871 KB) stays in L2 (50 MB), and the
+//   rows a block re-reads stay in its SM's L1, so the rate is L1's and
+//   L2's, not HBM's: the bound chip_smoke.py states (one round's HBM
+//   bytes) is a floor.  The earlier kernel gave each feature one block,
+//   16 of 132 SMs at B = 16, and waited for each round's 48 KB before it
+//   issued the next round, so no two rounds' copies were ever in flight.
+//   Design: a feature's band is split by column into 8 slices of 32
+//   columns, one block of 128 threads each (128 blocks at B = 16, 6 KB a
+//   round); a thread owns 3 fixed float4 of its slice and a ring of RING
+//   round buffers.  Before it refills a buffer it waits
+//   (cp.async.wait_group RING - 1) only for the round that filled it last,
+//   so RING rounds' copies are in flight.  A thread reads back only what
+//   it copied itself, so no barrier is needed.  The copies are
+//   cp.async.ca, so a slice's rows at the four round offsets (18 KB a
+//   block) are read from L1 after the first rounds, and the launch asks
+//   for a shared-memory carveout of 100 KB, which leaves L1 156 KB: at
+//   B = 64 and 128 the default carveout left L1 too small for the blocks
+//   an SM holds and the copy ran at L2's rate, 2.2x and 2x slower.
+//   Measured slower: cp.async.cg (L2 only), 1.8-2.3x; one bulk copy
+//   (cp.async.bulk on an mbarrier) a slice row, 4.5-10x; 16-column slices
+//   of 64 threads, or 384 threads of one float4.
 // * dynslice_fine: the copy, then rows[p][c] = sum_k rsel[p][k] band[k][c]
 //   (40x48 by 48x256), the sum taken in k order from 0.0 with separate
 //   multiply and add (--fmad=false), as the plain version takes it, so the
@@ -21,15 +51,28 @@
 //   own kernel reads a scratch that nothing writes.  Every round's rows are
 //   stored with __stcg, an inline asm store the compiler cannot drop, so
 //   no round's product is dead code.
-// * onehot_rowsel: per round, all B*40 rows of the band the one-hot select
-//   forms, row k = plane[idx[0] + r % 4 + k % 40] or zero past the plane,
-//   written to global memory; out sums rows 0..7, columns 0..127, over
-//   rounds in round order.  One block per band row, 16-byte loads.
-//
-// What bounds the copy and the one-hot form: bytes.  The copy moves 48 KB
-// per feature per round and computes nothing; the one-hot form moves B*40
-// rows of 2.6 KB per round.  Each round re-reads what the last read, so
-// L2 (50 MB) holds the plane and the rates are L2's, not HBM's.
+// * onehot_rowsel: per round, all B*40 rows of the band the one-hot
+//   select forms, row k = plane[idx[0] + r % 4 + k % 40] or zero outside
+//   the plane; out sums rows 0..7, columns 0..127, over rounds in round
+//   order; band is the last round's.  The TPU kernel keeps each round's
+//   band on chip and writes only out.  The earlier kernel stored every
+//   round's band to global memory (85 MB a launch at B = 16), and those
+//   stores set its time.  What bounds it now: the band's bytes into shared
+//   memory, B * 40 * W * 4 a round (1.70 MB at B = 16), read from only 43
+//   distinct plane rows (114 KB), which stay in L1 after the first rounds.
+//   Design: four blocks an SM (526 blocks of 224 threads at B = 16), each
+//   owning a contiguous range of the band's float4, with the block's width
+//   chosen so that a thread's last pass over the range is mostly busy.
+//   Each round a thread copies its float4 (at most 3) with cp.async.ca
+//   into a ring of RING round buffers, as the copy does; a row outside the
+//   plane is the same copy with a source size of 0, which costs no more.
+//   The threads that own rows 0..7, columns 0..127 also load that round's
+//   values into registers and add them to their sums in round order, from
+//   0.0, as the plain version adds.  After the last round a thread writes
+//   its float4 of the last buffer to `band`, one coalesced pass, and its
+//   sums to `out`: no earlier round touches global memory.  Measured no
+//   faster: the sums taken from the ring in shared memory, or their loads
+//   issued a round ahead; slower: one or two blocks an SM, 128 threads.
 //
 // What bounds the fine select on the H100: instruction issue.  A round is
 // 40*48*256 multiply-adds per feature, and --fmad=false (which keeps the
@@ -63,48 +106,64 @@ namespace {
 constexpr int PN = 40;
 constexpr int BAND_R = PN + 8;
 constexpr int BAND_C = 256;
-constexpr int BAND_Q = BAND_C / 4;  // float4 per band row
-constexpr int THREADS = 256;
+constexpr int RING = 4;  // rounds of copies in flight, a thread (copy and one-hot)
+// The shared-memory share of an SM's 256 KB that copy and one-hot ask for,
+// in percent of the most (228 KB): 100 KB, which holds four copy blocks or
+// the one-hot's four at B = 16 and leaves L1 156 KB for the plane rows the
+// rounds re-read.
+constexpr int CARVEOUT = 44;
 
-// Stage feature i's band of round r into `band` (BAND_R x BAND_C floats).
-__device__ __forceinline__ void stage_band(const int* __restrict__ idx,
-                                           const float* __restrict__ plane, int H, int W,
-                                           int i, int r, float* band) {
-  const int rb = probes::floor_div(idx[2 * i] + 8 * (r % 4), 8) * 8;
-  const int cb = probes::floor_div(idx[2 * i + 1] + 128 * (r % 2), 128) * 128;
-  const int rs = probes::dyn_start(rb, H, BAND_R);
-  const int cs = probes::dyn_start(cb, W, BAND_C);
-  for (int q = threadIdx.x; q < BAND_R * BAND_Q; q += THREADS) {
-    const int row = q / BAND_Q, col = (q % BAND_Q) * 4;
-    probes::cp_async16(band + row * BAND_C + col,
-                       plane + static_cast<long long>(rs + row) * W + cs + col);
-  }
-  probes::cp_async_wait_all();
-  __syncthreads();
+// The offset in the plane of feature (ri, ci)'s band of round r, plus c0.
+__device__ __forceinline__ long long band_origin(int ri, int ci, int r, int c0, int H, int W) {
+  const int rs = probes::dyn_start(probes::floor_div(ri + 8 * (r % 4), 8) * 8, H, BAND_R);
+  const int cs = probes::dyn_start(probes::floor_div(ci + 128 * (r % 2), 128) * 128, W, BAND_C);
+  return static_cast<long long>(rs) * W + cs + c0;
 }
 
-// bands[i] <- the staged band; out <- its top-left 8x128 corner (plus the
-// probe's `r * 0.0`) when i is the last feature.
-__device__ __forceinline__ void write_band(const float* band, float* __restrict__ bands,
-                                           float* __restrict__ out, int i, int B, int r) {
-  float* dst = bands + static_cast<long long>(i) * BAND_R * BAND_C;
-  for (int q = threadIdx.x; q < BAND_R * BAND_Q; q += THREADS)
-    reinterpret_cast<float4*>(dst)[q] = reinterpret_cast<const float4*>(band)[q];
-  if (i == B - 1) {
-    const float zero = static_cast<float>(r) * 0.0f;
-    for (int q = threadIdx.x; q < 8 * 128; q += THREADS)
-      out[q] = band[(q / 128) * BAND_C + q % 128] + zero;
-  }
-}
+constexpr int COPY_COLS = 32;                           // band columns a copy block moves
+constexpr int COPY_SLICES = BAND_C / COPY_COLS;         // copy blocks per feature
+constexpr int COPY_Q = COPY_COLS / 4;                   // float4 per slice row
+constexpr int COPY_THREADS = 128;
+constexpr int COPY_PER = BAND_R * COPY_Q / COPY_THREADS;  // float4 a thread owns
+static_assert(BAND_R * COPY_Q % COPY_THREADS == 0, "a slice splits evenly over the threads");
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(COPY_THREADS)
 dynslice_copy_kernel(const int* __restrict__ idx, const float* __restrict__ plane, int H,
                      int W, int B, int reps, float* __restrict__ out,
                      float* __restrict__ bands) {
-  __shared__ __align__(16) float band[BAND_R * BAND_C];
-  const int i = blockIdx.x;
-  for (int r = 0; r < reps; ++r) stage_band(idx, plane, H, W, i, r, band);
-  write_band(band, bands, out, i, B, reps - 1);
+  __shared__ __align__(16) float4 ring[RING][COPY_PER][COPY_THREADS];
+  const int i = blockIdx.x / COPY_SLICES;
+  const int c0 = (blockIdx.x % COPY_SLICES) * COPY_COLS;
+  const int ri = __ldg(idx + 2 * i), ci = __ldg(idx + 2 * i + 1);
+  int off[COPY_PER];  // this thread's float4 in a slice: band row * W + column
+#pragma unroll
+  for (int j = 0; j < COPY_PER; ++j) {
+    const int q = threadIdx.x + j * COPY_THREADS;
+    off[j] = (q / COPY_Q) * W + (q % COPY_Q) * 4;
+  }
+  for (int r = 0; r < reps; ++r) {
+    probes::cp_async_wait_group<RING - 1>();  // round r - RING, the last to fill this buffer
+    const float* src = plane + band_origin(ri, ci, r, c0, H, W);
+#pragma unroll
+    for (int j = 0; j < COPY_PER; ++j)
+      probes::cp_async16_ca(&ring[r % RING][j][threadIdx.x], src + off[j]);
+    probes::cp_async_commit();
+  }
+  probes::cp_async_wait_group<0>();
+  // bands[i] <- this thread's float4 of the last round; out <- feature B - 1's
+  // top-left 8x128 corner (plus the probe's `r * 0.0`)
+  const float zero = static_cast<float>(reps - 1) * 0.0f;
+#pragma unroll
+  for (int j = 0; j < COPY_PER; ++j) {
+    const int q = threadIdx.x + j * COPY_THREADS;
+    const int row = q / COPY_Q, col = c0 + (q % COPY_Q) * 4;
+    const float4 v = ring[(reps - 1) % RING][j][threadIdx.x];
+    *reinterpret_cast<float4*>(bands + (static_cast<long long>(i) * BAND_R + row) * BAND_C +
+                               col) = v;
+    if (i == B - 1 && row < 8 && col < 128)
+      *reinterpret_cast<float4*>(out + row * 128 + col) =
+          make_float4(v.x + zero, v.y + zero, v.z + zero, v.w + zero);
+  }
 }
 
 constexpr int FINE_COLS = 32;                      // band columns a fine block reads
@@ -185,33 +244,65 @@ dynslice_fine_kernel(const int* __restrict__ idx, const float* __restrict__ plan
                               c0)[q % FINE_Q] = last[q];
 }
 
-constexpr int ROW_THREADS = 128;
+constexpr int ONEHOT_THREADS = 256;  // the most a one-hot block has
+constexpr int ONEHOT_PER = 3;        // the most float4 a one-hot thread owns
+constexpr int ONEHOT_BLOCKS_PER_SM = 4;
 
-__global__ void __launch_bounds__(ROW_THREADS)
+__device__ __forceinline__ void add4(float4& acc, const float4 v) {
+  acc.x = acc.x + v.x;
+  acc.y = acc.y + v.y;
+  acc.z = acc.z + v.z;
+  acc.w = acc.w + v.w;
+}
+
+// Block b owns the band's float4 [b * span, (b + 1) * span) (of `total`),
+// `per` passes of blockDim.x; dynamic shared memory: RING x per x blockDim.x
+// float4.
+__global__ void __launch_bounds__(ONEHOT_THREADS)
 onehot_rowsel_kernel(const int* __restrict__ idx, const float* __restrict__ plane, int H,
-                     int W, int reps, float* __restrict__ out, float* __restrict__ band) {
-  const int k = blockIdx.x;  // band row
-  const int wq = W / 4;
-  const int base = idx[0] + k % PN;
-  float4* dst = reinterpret_cast<float4*>(band + static_cast<long long>(k) * W);
-  const bool corner = k < 8 && threadIdx.x < 32;  // columns 0..127 of rows 0..7
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int r = 0; r < reps; ++r) {
-    const int t = base + r % 4;
-    const bool inside = t >= 0 && t < H;
-    const float4* src = reinterpret_cast<const float4*>(plane + static_cast<long long>(t) * W);
-    for (int q = threadIdx.x; q < wq; q += ROW_THREADS) {
-      const float4 v = inside ? __ldg(src + q) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      __stcg(dst + q, v);  // an asm store: no round's gather is dead
-      if (corner && q == threadIdx.x) {
-        acc.x = acc.x + v.x;
-        acc.y = acc.y + v.y;
-        acc.z = acc.z + v.z;
-        acc.w = acc.w + v.w;
-      }
-    }
+                     int W, int total, int span, int per, int reps, float* __restrict__ out,
+                     float* __restrict__ band) {
+  extern __shared__ __align__(16) float4 onehot_ring[];
+  const int nt = blockDim.x, wq = W / 4;
+  const int first = blockIdx.x * span, end = min(first + span, total);
+  int row[ONEHOT_PER], col[ONEHOT_PER];  // band row % PN (-1: no float4) and column
+  bool corner[ONEHOT_PER];               // rows 0..7, columns 0..127
+  float4 acc[ONEHOT_PER];
+#pragma unroll
+  for (int j = 0; j < ONEHOT_PER; ++j) {
+    const int q = first + j * nt + threadIdx.x;
+    const bool own = j < per && q < end;
+    row[j] = own ? (q / wq) % PN : -1;
+    col[j] = (q % wq) * 4;
+    corner[j] = own && q / wq < 8 && col[j] < 128;
+    acc[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  if (corner) reinterpret_cast<float4*>(out + k * 128)[threadIdx.x] = acc;
+  const int t0 = __ldg(idx);
+  for (int r = 0; r < reps; ++r) {
+    probes::cp_async_wait_group<RING - 1>();  // round r - RING, the last to fill this buffer
+    float4* slot = onehot_ring + (r % RING) * per * nt + threadIdx.x;
+#pragma unroll
+    for (int j = 0; j < ONEHOT_PER; ++j) {
+      if (row[j] < 0) continue;
+      const int t = t0 + r % 4 + row[j];
+      const bool inside = t >= 0 && t < H;
+      const float* src = plane + static_cast<long long>(inside ? t : 0) * W + col[j];
+      probes::cp_async16_ca(slot + j * nt, src, inside ? 16 : 0);  // zeros outside
+      if (corner[j])  // the corner's values of round r, from the plane, summed in order
+        add4(acc[j], inside ? __ldg(reinterpret_cast<const float4*>(src))
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    }
+    probes::cp_async_commit();
+  }
+  probes::cp_async_wait_group<0>();
+  const float4* last = onehot_ring + ((reps - 1) % RING) * per * nt + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < ONEHOT_PER; ++j) {
+    if (row[j] < 0) continue;
+    const int q = first + j * nt + threadIdx.x;
+    reinterpret_cast<float4*>(band)[q] = last[j * nt];
+    if (corner[j]) *reinterpret_cast<float4*>(out + (q / wq) * 128 + col[j]) = acc[j];
+  }
 }
 
 }  // namespace
@@ -220,7 +311,10 @@ extern "C" int meshflow_probe_dynslice_copy(const void* idx, const void* plane, 
                                             void* bands, int H, int W, int B, int reps,
                                             void* stream) {
   if (B == 0) return static_cast<int>(cudaSuccess);
-  dynslice_copy_kernel<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t err = cudaFuncSetAttribute(
+      dynslice_copy_kernel, cudaFuncAttributePreferredSharedMemoryCarveout, CARVEOUT);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dynslice_copy_kernel<<<B * COPY_SLICES, COPY_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(idx), static_cast<const float*>(plane), H, W, B, reps,
       static_cast<float*>(out), static_cast<float*>(bands));
   return static_cast<int>(cudaGetLastError());
@@ -242,8 +336,28 @@ extern "C" int meshflow_probe_onehot_rowsel(const void* idx, const void* plane, 
                                             void* band, int H, int W, int B, int reps,
                                             void* stream) {
   if (B == 0) return static_cast<int>(cudaSuccess);
-  onehot_rowsel_kernel<<<B * PN, ROW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(plane), H, W, reps,
-      static_cast<float*>(out), static_cast<float*>(band));
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(onehot_rowsel_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout, CARVEOUT);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // ONEHOT_BLOCKS_PER_SM blocks an SM unless a thread would own more than
+  // ONEHOT_PER float4; each block's range in passes of whole warps, as few
+  // as fit, so the last pass is mostly busy
+  const int total = B * PN * (W / 4);
+  int blocks = ONEHOT_BLOCKS_PER_SM * sms;
+  if (total > blocks * ONEHOT_PER * ONEHOT_THREADS)
+    blocks = (total + ONEHOT_PER * ONEHOT_THREADS - 1) / (ONEHOT_PER * ONEHOT_THREADS);
+  const int span = (total + blocks - 1) / blocks;
+  blocks = (total + span - 1) / span;
+  const int per = (span + ONEHOT_THREADS - 1) / ONEHOT_THREADS;
+  const int threads = ((span + per - 1) / per + 31) / 32 * 32;
+  const size_t smem = sizeof(float4) * RING * per * threads;
+  onehot_rowsel_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(idx), static_cast<const float*>(plane), H, W, total, span, per,
+      reps, static_cast<float*>(out), static_cast<float*>(band));
   return static_cast<int>(cudaGetLastError());
 }

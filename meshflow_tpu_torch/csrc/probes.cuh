@@ -23,15 +23,20 @@ __host__ __device__ __forceinline__ int floor_div(int a, int b) {
 }
 
 // 16-byte copy from global to shared memory that bypasses L1 (cp.async.cg);
-// both addresses must be 16-byte aligned.  Completed by cp_async_wait_all,
-// or by cp_async_commit then cp_async_wait_group.
+// both addresses must be 16-byte aligned.  Completed by cp_async_commit
+// then cp_async_wait_group.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+// The same through L1 (cp.async.ca), reading `src_bytes` (16, or 0 for
+// none) of gmem and filling the rest of the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16_ca(void* smem, const void* gmem,
+                                              unsigned src_bytes = 16) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
 }
 
 // Close the group of this thread's cp.async copies issued since the last

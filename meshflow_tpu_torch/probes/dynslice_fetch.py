@@ -21,8 +21,12 @@ are the last round's:
   result is undefined.  Returns (out, bands, rows), out the last rows'
   corner.
 - ``onehot_rowsel``: per round, the (B*40, W) band whose row k is
-  ``plane[idx[0] + r % 4 + k % 40]`` (zero past the plane); out sums the
-  bands' 8 x 128 corners over rounds.  Returns (out, band).
+  ``plane[idx[0] + r % 4 + k % 40]`` (zero outside the plane); out sums
+  the bands' 8 x 128 corners over rounds.  Returns (out, band).
+
+Every round's band is fetched in full on the card, though only the last
+one reaches an output; the copy and one-hot kernels keep ``RING`` rounds'
+fetches in flight.
 """
 
 from __future__ import annotations
@@ -38,10 +42,11 @@ PN = 40
 BAND_R, BAND_C = PN + 8, 256
 REPS = 50
 SIZES = (16, 64, 128)  # the feature block sizes the probe sweeps
+RING = 4  # rounds in flight in the copy and one-hot kernels (RING in the .cu)
 
 __all__ = [
-    "HPAD", "WPAD", "PN", "BAND_R", "BAND_C", "REPS", "SIZES", "probe_inputs", "band_index",
-    "one_hot_rsel", "dynslice_copy", "dynslice_copy_plain", "dynslice_fine",
+    "HPAD", "WPAD", "PN", "BAND_R", "BAND_C", "REPS", "SIZES", "RING", "probe_inputs",
+    "band_index", "one_hot_rsel", "dynslice_copy", "dynslice_copy_plain", "dynslice_fine",
     "dynslice_fine_plain", "onehot_rowsel", "onehot_rowsel_plain",
 ]
 
@@ -116,6 +121,8 @@ def _geometry(name: str, idx: torch.Tensor, plane: torch.Tensor, reps: int):
     h, w = plane.shape
     if h < BAND_R or w < BAND_C or w % 4:
         raise ValueError(f"{name}: plane {h}x{w} below {BAND_R}x{BAND_C} or W % 4 != 0")
+    if max(h, b * PN) * w >= 2**31:
+        raise ValueError(f"{name}: plane {h}x{w} or band {b * PN}x{w} past int32 indexing")
     device = require(name, (idx, torch.int32, (2 * b,)), (plane, torch.float32, (h, w)))
     return device, b, h, w
 

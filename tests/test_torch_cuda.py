@@ -380,12 +380,14 @@ def _equal(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("reps", [1, 2, 5])
+@pytest.mark.parametrize("reps", list(range(1, dynslice_fetch.RING + 2)) + [dynslice_fetch.REPS])
 @pytest.mark.parametrize("b", [4, 16, 64, 128])
 def test_probe_d_kernels_match_plain_on_card(b, reps):
     """Bit for bit, the fine select too on a random rsel: its sums keep the
-    plain version's k order and separate multiply and add.  reps 1, 2
-    and 5 cover one round and both of its band buffers."""
+    plain version's k order and separate multiply and add.  reps 1 to
+    RING + 1 cover one round, every buffer of the copy and one-hot rings
+    and the first reuse of one, and both of the fine select's band
+    buffers; the one-hot select also at rows past and before the plane."""
     dev = _card()
     idx, plane = (t.to(dev) for t in dynslice_fetch.probe_inputs(b))
     idx[:4] = torch.tensor([320, 640, -16, -100], dtype=torch.int32)  # clamped and wrapped
@@ -398,12 +400,13 @@ def test_probe_d_kernels_match_plain_on_card(b, reps):
     rsel = torch.from_numpy(np.random.default_rng(1).random((b, d.PN, d.BAND_R), np.float32)).to(dev)
     assert _equal(d.dynslice_fine(idx, plane, rsel, reps),
                   d.dynslice_fine_plain(idx, plane, rsel, reps))
-    for first in (idx[0].item(), 300):
-        idx[0] = first  # 300: rows past the plane select zeros
+    probe_start = dynslice_fetch.probe_inputs(b)[0][0].item()
+    for first in (probe_start, idx[0].item(), 300, -5):
+        idx[0] = first  # 320 and 300: rows past the plane, -5: before it, select zeros
         assert _equal(d.onehot_rowsel(idx, plane, reps), d.onehot_rowsel_plain(idx, plane, reps))
     torch.cuda.synchronize()
     assert (d.dynslice_copy.launches, d.dynslice_fine.launches, d.onehot_rowsel.launches) == (
-        before[0] + 1, before[1] + 2, before[2] + 2
+        before[0] + 1, before[1] + 2, before[2] + 4
     )
 
 

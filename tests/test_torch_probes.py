@@ -142,10 +142,11 @@ def test_d_fine_matches_pallas(selection):
         np.testing.assert_allclose(got_out.numpy(), out, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("first_row", [0, 300])
+@pytest.mark.parametrize("first_row", [0, 300, -5])
 def test_d_onehot_matches_pallas(first_row):
     """idx[0] = 300: rows 300 + r % 4 + k % 40 run past the plane's 328
-    rows, where the one-hot select gives zeros."""
+    rows, and idx[0] = -5: the first rows lie before the plane; the
+    one-hot select gives zeros for both."""
     plane = _d_plane(2)
     idx = D_IDX.copy()
     idx[0] = first_row
@@ -160,7 +161,8 @@ def test_d_onehot_matches_pallas(first_row):
     np.testing.assert_array_equal(got_out.numpy(), out)
     assert band.shape == (B * jax_d.PN, jax_d.WPAD)
     t = first_row + (REPS - 1) % 4 + np.arange(B * jax_d.PN) % jax_d.PN
-    want = np.where((t < jax_d.HPAD)[:, None], plane[np.minimum(t, jax_d.HPAD - 1)], 0.0)
+    inside = (t >= 0) & (t < jax_d.HPAD)
+    want = np.where(inside[:, None], plane[np.clip(t, 0, jax_d.HPAD - 1)], 0.0)
     np.testing.assert_array_equal(band.numpy(), want)
 
 
