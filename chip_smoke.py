@@ -38,14 +38,36 @@ From the root of a checkout, on a machine with one CUDA card:
    stabilized path smoother than the raw one;
 10. the main path on a small clip on the card and on the CPU (plain
    versions), whose outputs must agree;
-11. the probes: ``python -m meshflow_tpu_torch.probes`` with the six
+11. native_io: whether ``native/libmeshflow_videoio.so`` (libav decode and
+   encode) loads on the machine, and the loader's reason when it does not;
+12. streamed: ``streaming.stabilize_streamed`` on the 300-frame 640x360
+   clip through an array-backed clip and a capturing writer (no codec),
+   at CHUNK 64 and 16, its frames torch.equal and its metrics equal to
+   ``_stabilize_frames`` at the same CHUNK, the kernels' launch counts,
+   warm wall time and a pass with its stages timed;
+13. checkpoint: a streamed run that writes a checkpoint under a temporary
+   directory, then reruns under the same and another variant that skip
+   pass 1 (kernel A runs the metric pass's launches only) and equal fresh
+   runs;
+14. memory: peak device memory at 1920x1080 x 300 frames (d=3, kernel C),
+   the in-memory route against the stream with
+   MESHFLOW_HBM_FRAME_BUDGET_GB=0 (pass 1 and the rest apart), equal
+   outputs;
+15. file: when the native library loads, the clip written by the native
+   encoder, ``stabilize(in, out, 0)`` file to file on the card, the
+   output's frame count, fps and size, decode and encode seconds;
+   otherwise the line says why it was skipped;
+16. the probes: ``python -m meshflow_tpu_torch.probes`` with the six
    probe kernels' launch counts set to 0 before it (probe F also on
    general float32 values), then each probe kernel against its plain
    version, bit for bit (probe D's copy and one-hot at 4 to 128 features,
    1 to RING + 1 and 50 rounds, one-hot rows inside, past and before the
    plane; its fine select with a one-hot and a random selection at 4 to
    128 features and 1 to 50 rounds; probe E at every start of its plane
-   and at widths 4 to 1024); and each D kernel's marginal round at B = 16,
+   and at widths 4 to 1024; probe G at 1, 8 and 32 features, clamped and
+   wrapped bases, launched with and without programmatic dependent
+   launch, beside the launch floor of its grid and one index_select of
+   its rows); and each D kernel's marginal round at B = 16,
    (t50 - t1) / 49, gated at no less than the round's bytes over the
    card's aggregate shared-memory rate, so that no round is skipped.
 
@@ -57,7 +79,9 @@ kernel launch (an LK track of 3 levels is 3 launches; kernel B's entry
 point is one launch of its table kernel and one of its map kernel); an LK
 kernel's `ms` is at the main path's motion launch, `ms_8_pairs` at the
 8-pair case; kernel B's at the main path's launch, beside `host_ms`,
-`ms_online`, `host_ms_online` and `ms_1080p_mesh64`.  Prints one JSON
+`ms_online`, `host_ms_online` and `ms_1080p_mesh64`; `launches_streamed`
+counts a kernel's launches in the streamed 640x360 run (kernel C's in
+the streamed 1080p run).  Prints one JSON
 line of the kernels' launches, errors, times and bounds, then the last
 line ``{"ok": true, "device": {...}}``.  Any failed check or error exits
 non-zero before that line.  Without a CUDA device, or without the
@@ -76,8 +100,9 @@ kernel B's outputs, the main path's output and the timed probe kernels'
 outputs) and prints the times.  ``--parts lk,bmap,main,probes`` runs only
 the parts named; ``probes`` times probe D's copy and fine select at 16,
 64 and 128 features, its one-hot select at 16 (all three at 16 also at
-one round a launch) and probe E at the probe's r0, beside the PyTorch
-calls of the same functions.
+one round a launch), probe E at the probe's r0 and probe G at B = 8 (with
+and without programmatic dependent launch, and its launch floor, where
+the tree has them), beside the PyTorch calls of the same functions.
 """
 
 from __future__ import annotations
@@ -856,6 +881,271 @@ def phase_small_agreement(device):
     check(max(rel) <= 1e-2, f"card vs CPU metrics differ by {rel}")
 
 
+def phase_native_io():
+    """Whether the committed native libav library loads on this machine,
+    and why not when it does not; nothing is installed either way."""
+    from meshflow_tpu_torch.io import native
+
+    ok = native.available()
+    where = native.LIB_PATH.relative_to(Path(__file__).resolve().parent)
+    print(f"native_io: {where} loads: {ok}"
+          + ("" if ok else f" ({native.load_error()}); nothing is installed"))
+    return ok
+
+
+def stream_launch_counts(config, h, w, num_frames, chunk):
+    """(LK launches, backward-map calls) of a streamed run: pass 1's
+    windows and pass 2's metric blocks at the LK's levels, and two maps a
+    block (the crop scan, then pass 2)."""
+    import math
+
+    levels = config.lk_max_level(*config.track_shape(h, w)) + 1
+    blocks = math.ceil((num_frames - 1) / (chunk - 1)), math.ceil(num_frames / chunk)
+    lk = levels * (blocks[0] + (blocks[1] if config.compute_metrics else 0))
+    return lk, 2 * blocks[1]
+
+
+def run_streamed(stab, clip, device, variant=0, timer=None, checkpoint_dir=None):
+    """One streamed run of `clip` into a capturing writer: (frames on the
+    host, metrics, seconds, launches)."""
+    import torch
+
+    from meshflow_tpu_torch import streaming
+    from meshflow_tpu_torch.utils.profiling import StageTimer
+
+    writer = streaming.CaptureWriter()
+    reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    metrics = streaming.stabilize_streamed(
+        clip, writer, variant, stab.config, stab._key,
+        timer or StageTimer(enabled=False, device=device), device, chunk=stab.CHUNK,
+        checkpoint_dir=checkpoint_dir,
+    )
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    return writer.frames(), metrics, seconds, read_launches()
+
+
+def in_memory(stab, frames_np, device, variant=0):
+    """The in-memory route on host frames: (cropped frames on the host,
+    metrics, launches)."""
+    import torch
+
+    reset_launches()
+    out = stab._stabilize_frames(torch.from_numpy(frames_np).to(device), variant)
+    launches = read_launches()
+    return out[0].cpu(), tuple(float(x) for x in out[1:]), launches
+
+
+def check_streamed(name, got, ref):
+    """Streamed frames torch.equal to the in-memory route's, metrics equal."""
+    import math
+
+    import torch
+
+    frames, metrics = got[0], got[1]
+    check(torch.equal(torch_frames(frames), torch_frames(ref[0])),
+          f"{name}: streamed frames differ from the in-memory route's")
+    same = all(a == b or (math.isnan(a) and math.isnan(b)) for a, b in zip(metrics, ref[1]))
+    check(same, f"{name}: streamed metrics {metrics} differ from in-memory {ref[1]}")
+
+
+def phase_streamed(device, num_frames=300, h=360, w=640, pan=120):
+    """``streaming.stabilize_streamed`` on the 640x360 clip through an
+    array-backed clip and a capturing writer (no codec), at CHUNK 64 and
+    16, each against ``_stabilize_frames`` at the same CHUNK: frames
+    torch.equal, metrics equal, the kernels' launch counts; at CHUNK 64 a
+    warm pass and a pass with its stages timed."""
+    from meshflow_tpu_torch import streaming
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+    from meshflow_tpu_torch.utils.profiling import StageTimer
+
+    frames = synthetic_clip(num_frames, h, w, pan=pan)
+    clip = streaming.ArrayClip(frames)
+    out = {}
+    for chunk in (64, 16):
+        stab = MeshFlowStabilizer(device=device)
+        stab.CHUNK = chunk
+        ref = in_memory(stab, frames, device)
+        got = run_streamed(stab, clip, device)
+        check_streamed(f"streamed CHUNK {chunk}", got, ref)
+        lk, bmap = stream_launch_counts(stab.config, h, w, num_frames, chunk)
+        launches = got[3]
+        check(launches["lk_level"] == lk and launches["backward_map"] == bmap
+              and launches["lk_band"] == 0,
+              f"streamed CHUNK {chunk}: launches {launches}, expected kernel A {lk}, "
+              f"kernel B {bmap}")
+        line = (f"streamed CHUNK {chunk}: {num_frames} frames {w}x{h}: frames and metrics "
+                f"equal to _stabilize_frames; first pass {got[2]:.3f} s; launches {launches}")
+        if chunk == 64:
+            warm = run_streamed(stab, clip, device)
+            timer = StageTimer(enabled=True, device=device)
+            run_streamed(stab, clip, device, timer=timer)
+            stages = {name: round(sec, 4) for name, sec in timer.stages}
+            line += (f"; warm {warm[2]:.3f} s ({num_frames / warm[2]:.2f} fps); stages of a "
+                     f"third pass (s, a synchronize at each stage end) {stages}")
+            out = {"launches": launches, "first_s": got[2], "warm_s": warm[2],
+                   "stages": stages, "clip": frames, "ref": ref}
+        print(line + f"; metrics {got[1]}")
+    return out
+
+
+def phase_checkpoint(device, streamed):
+    """Checkpoint/resume on the 640x360 clip (CHUNK 64), a checkpoint
+    directory under a temporary directory: the first run writes it; a rerun
+    under the same variant and one under another variant resume at the
+    solve (kernel A runs the metric pass's launches only) and equal fresh
+    runs."""
+    import tempfile
+
+    import numpy as np
+
+    from meshflow_tpu_torch import streaming
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+
+    frames = streamed["clip"]
+    num_frames, h, w = frames.shape[:3]
+    stab = MeshFlowStabilizer(device=device)
+    levels = stab.config.lk_max_level(h, w) + 1
+    metric_lk = levels * -(-num_frames // stab.CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clip.npy")
+        np.save(path, frames)  # the file that stands for the clip in the key
+        clip = streaming.ArrayClip(frames, path=path)
+        ckpt = os.path.join(tmp, "checkpoints")
+        first = run_streamed(stab, clip, device, checkpoint_dir=ckpt)
+        files = os.listdir(ckpt)
+        check(len(files) == 1, f"checkpoint: {files} after the first run")
+        size = os.path.getsize(os.path.join(ckpt, files[0]))
+        check_streamed("checkpoint: first run", first, streamed["ref"])
+        rows = []
+        for variant in (0, 2):
+            resumed = run_streamed(stab, clip, device, variant, checkpoint_dir=ckpt)
+            fresh = first if variant == 0 else run_streamed(stab, clip, device, variant)
+            check_streamed(f"checkpoint: resumed variant {variant}", resumed, fresh)
+            check(resumed[3]["lk_level"] == metric_lk,
+                  f"checkpoint: variant {variant} ran kernel A {resumed[3]['lk_level']} "
+                  f"times, the metric pass alone is {metric_lk}: pass 1 ran")
+            rows.append((variant, resumed[2], fresh[2]))
+        check(len(os.listdir(ckpt)) == 1, "checkpoint: another variant wrote a checkpoint")
+    print(f"checkpoint: {files[0]} ({size} bytes); resumed runs skip pass 1 (kernel A "
+          f"{metric_lk} launches, the metric pass) and equal fresh runs: "
+          + "; ".join(f"variant {v} resumed {r:.3f} s, fresh {f:.3f} s" for v, r, f in rows))
+    return {"bytes": size, "runs": rows}
+
+
+def torch_frames(frames):
+    import torch
+
+    return frames if isinstance(frames, torch.Tensor) else torch.from_numpy(frames)
+
+
+def phase_memory(device, num_frames=300, h=1080, w=1920, pan=360):
+    """Peak device memory at 1920x1080 x 300 frames, d=3, kernel C: the
+    in-memory route (the clip uploaded, then ``_stabilize_frames``) against
+    ``stabilize_streamed`` with MESHFLOW_HBM_FRAME_BUDGET_GB=0; equal
+    outputs."""
+    import torch
+
+    from meshflow_tpu_torch import streaming
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+
+    frames = synthetic_clip(num_frames, h, w, pan=pan)
+    stab = MeshFlowStabilizer(device=device)
+    peaks = {}
+    with fetch_route("band"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ref = in_memory(stab, frames, device)
+        peaks["in-memory"] = torch.cuda.max_memory_allocated() - base
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pass1 = streaming._pass1
+
+        def pass1_peak(*args):  # the peak of pass 1, then of the rest apart
+            out = pass1(*args)
+            torch.cuda.synchronize()
+            peaks["streamed pass 1"] = torch.cuda.max_memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+        os.environ["MESHFLOW_HBM_FRAME_BUDGET_GB"] = "0"
+        streaming._pass1 = pass1_peak
+        try:
+            got = run_streamed(stab, streaming.ArrayClip(frames), device)
+        finally:
+            streaming._pass1 = pass1
+            del os.environ["MESHFLOW_HBM_FRAME_BUDGET_GB"]
+        peaks["streamed solve to pass 2"] = torch.cuda.max_memory_allocated() - base
+        peaks["streamed"] = max(peaks["streamed pass 1"], peaks["streamed solve to pass 2"])
+    check_streamed("memory 1080p", got, ref)
+    lk, bmap = stream_launch_counts(stab.config, h, w, num_frames, stab.CHUNK)
+    check(got[3]["lk_band"] == lk and got[3]["lk_level"] == 0
+          and got[3]["backward_map"] == bmap,
+          f"memory 1080p: streamed launches {got[3]}, expected kernel C {lk}, kernel B {bmap}")
+    gib = {k: v / (1 << 30) for k, v in peaks.items()}
+    print(f"memory: {num_frames} frames {w}x{h}, d={stab.config.resolve_track_downscale(h, w)}, "
+          f"kernel C: peak device memory above the start, in-memory route "
+          f"{gib['in-memory']:.3f} GiB, streamed (MESHFLOW_HBM_FRAME_BUDGET_GB=0) "
+          f"{gib['streamed']:.3f} GiB (pass 1 {gib['streamed pass 1']:.3f}, solve, crop scan "
+          f"and pass 2 {gib['streamed solve to pass 2']:.3f}); outputs equal; streamed {got[2]:.3f} s, launches "
+          f"{got[3]}")
+    return {"peak_gib": gib, "launches": got[3], "seconds": got[2]}
+
+
+FOURCC_MP4V = sum(ord(c) << (8 * i) for i, c in enumerate("mp4v"))
+
+
+def phase_file(device, native_ok, num_frames=300, h=360, w=640, pan=120, fps=30.0):
+    """File to file on the card, when the native library loads: the clip
+    written with the native writer, ``MeshFlowStabilizer(device).stabilize
+    (in, out, 0)``, the output's frame count, fps and shape read back with
+    the native reader; decode and encode seconds from the run's timer."""
+    import math
+    import tempfile
+
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+    from meshflow_tpu_torch.io import native
+
+    if not native_ok:
+        print(f"file: skipped: the native library does not load ({native.load_error()}) "
+              "and the machine has no cv2, so no clip can be decoded or encoded")
+        return None
+    frames = synthetic_clip(num_frames, h, w, pan=pan)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.mp4"), os.path.join(tmp, "out.mp4")
+        start = time.perf_counter()
+        with native.NativeWriter(src, w, h, fps, FOURCC_MP4V) as writer:
+            check(writer.write(frames) == num_frames, "file: the native writer dropped frames")
+        write_s = time.perf_counter() - start
+        stab = MeshFlowStabilizer(device=device)
+        start = time.perf_counter()
+        metrics = stab.stabilize(src, dst, 0)
+        wall = time.perf_counter() - start
+        stages = {name: round(sec, 4) for name, sec in stab.last_timer.stages}
+        with native.NativeReader(dst) as reader:
+            count = 0
+            while True:
+                batch = reader.read(64)
+                if len(batch) == 0:
+                    break
+                count += len(batch)
+            shape, out_fps = (reader.height, reader.width), reader.fps
+    check(count == num_frames, f"file: the output has {count} frames, not {num_frames}")
+    check(abs(out_fps - fps) < 0.01, f"file: output fps {out_fps}, not {fps}")
+    check(shape == (h, w), f"file: output frames {shape}, not {(h, w)}")
+    check(all(math.isfinite(x) for x in metrics), f"file: metrics {metrics}")
+    print(f"file: {num_frames} frames {w}x{h} written by the native encoder in {write_s:.3f} s; "
+          f"stabilize(in, out, 0) on {device} in {wall:.3f} s: decode "
+          f"{stages.get('decode', 0.0):.3f} s, encode {stages.get('encode', 0.0):.3f} s; "
+          f"output {count} frames at {out_fps} fps, {w}x{h}; metrics {metrics}; stages {stages}")
+    return {"seconds": wall, "decode_s": stages.get("decode"), "encode_s": stages.get("encode")}
+
+
 # The probe kernels of the kernels line: name -> (CUDA source in csrc/,
 # the case the line reports, the Pallas kernel it replaces)
 PROBE_KERNELS = {
@@ -934,6 +1224,8 @@ ALIGNED_WIDTHS = (4, 256, 664, 1024)
 # at starts whose rows run past the plane (300), start past it (320) and
 # start before it (-5)
 ONEHOT_STARTS = (300, 320, -5)
+# G is held bit for bit at these feature counts
+G_SIZES = (1, 8, 32)
 
 
 def smi_query(field: str) -> str:
@@ -955,6 +1247,8 @@ def phase_probes(device):
     one-hot and a random selection matrix at FINE_SIZES and FINE_REPS, E
     at every start and ALIGNED_WIDTHS; then the marginal round of each D
     kernel at B = 16 against its floor."""
+    import math
+
     import numpy as np
     import torch
 
@@ -1036,10 +1330,39 @@ def phase_probes(device):
             check(torch.equal(e.aligned_rows(plane, r0), e.aligned_rows_plain(plane, r0)),
                   f"aligned_dynslice W={w} r0={row} differs")
     print(f"probe E: equal to the plain version at r0 -3..{e.H - 1}, W {ALIGNED_WIDTHS}")
+    # G at 1, 8 and 32 features, launched both ways, at the probe's
+    # corners, bases past H - 16 (clamped) and negative ones (wrapped)
     plane, _ = (t.to(device) for t in g.probe_inputs())
-    corners = g.corners_from([0.0, 3.7, 20.0, 24.0, 27.0, 31.4, -1.2, 10.0]).to(device)
-    check(torch.equal(g.band_row(plane, corners), g.band_row_plain(plane, corners)),
-          "scalar_from_vmem differs at clamped and wrapped bases")
+    for b in G_SIZES:
+        for kind, values in (
+            ("probe", rng.integers(0, (g.H - g.ROWS) // 2, b)),
+            ("past H - 16", rng.uniform(g.H / 2 - 8, g.H / 2 + 40, b)),
+            ("negative", rng.uniform(-40.0, 0.0, b)),
+        ):
+            corners = g.corners_from(values).to(device)
+            for pdl in (True, False):
+                got = g.band_row(plane, corners, pdl=pdl)
+                err["scalar_from_vmem"] = max(err["scalar_from_vmem"],
+                                              entry.max_abs_err(got, g.band_row_plain(plane, corners)))
+                check(torch.equal(got, g.band_row_plain(plane, corners)),
+                      f"scalar_from_vmem B={b} {kind} corners pdl={pdl} differs")
+    print(f"probe G: equal to the plain version at B {G_SIZES}, probe, clamped and wrapped "
+          "bases, launched with and without programmatic dependent launch")
+    # G's times: the kernel launched both ways, the launch floor of its grid
+    # (an empty kernel launched the same way) and the library call (the
+    # gather alone: index_select of precomputed rows), all in this process
+    plane, corners = (t.to(device) for t in g.probe_inputs())
+    index = torch.tensor([(math.floor(c * 2 + 1) // 8) * 8 for c in corners[:, 0].tolist()],
+                         device=device)
+    g_times = {}
+    for pdl in (True, False):
+        g_times[f"ms_pdl_{'on' if pdl else 'off'}"] = device_ms(
+            lambda: g.band_row(plane, corners, pdl=pdl), launches=20)
+        g_times[f"floor_ms_pdl_{'on' if pdl else 'off'}"] = device_ms(
+            lambda: g.launch_floor(pdl=pdl), launches=20)
+    g_times["index_select_ms"] = device_ms(lambda: plane.index_select(0, index), launches=20)
+    print("probe G B=8 (ms a launch): " + ", ".join(f"{k} {v:.5f}" for k, v in g_times.items())
+          + f"; default launch pdl={g.PDL}")
 
     # every round does its work: the marginal round of each D kernel at
     # the probe's B = 16 against the round's bytes over the card's
@@ -1093,6 +1416,8 @@ def phase_probes(device):
         }
         if name == "dynslice_fine":  # library_ms: 50 x (band gather + bmm)
             out[name]["library_ms_bmm_only"] = main["bmm_ms"]
+        if name == "scalar_from_vmem":
+            out[name].update(g_times)
         out[name].update(marginal.get(name, {}))
     return out
 
@@ -1124,10 +1449,17 @@ def probe_tree_times(kernel_ms):
     launch, "reps=1") and of E at the probe's r0, beside the library calls
     of the same function (D copy: 50 index gathers; D fine: 50 bmm alone
     and 50 x (band gather + bmm); D one-hot: 50 index_select; E: slice +
-    clone); returns a digest of every timed kernel's outputs."""
+    clone), and of G at the probe's B = 8 beside its library call (one
+    index_select of the precomputed rows) and, in a tree that has them, its
+    times launched without programmatic dependent launch and its launch
+    floor; returns a digest of every timed kernel's outputs."""
     import torch
 
-    from meshflow_tpu_torch.probes import aligned_dynslice as e, dynslice_fetch as d
+    from meshflow_tpu_torch.probes import (
+        aligned_dynslice as e,
+        dynslice_fetch as d,
+        scalar_from_vmem as g,
+    )
 
     outputs = []
     for kind, b in TREE_PROBES:
@@ -1161,6 +1493,22 @@ def probe_tree_times(kernel_ms):
     kernel_ms["E r0=37"] = device_ms(lambda: e.aligned_rows(plane, r0), launches=20)
     kernel_ms["E library slice+clone"] = device_ms(
         lambda: plane[e.PROBE_ROW : e.PROBE_ROW + e.ROWS].clone(), launches=20)
+    # G at the probe's B = 8 (and, in a tree that has them, launched without
+    # programmatic dependent launch, and the launch floor of its grid)
+    plane, corners = (t.to("cuda") for t in g.probe_inputs())
+    outputs.append(g.band_row(plane, corners))
+    kernel_ms["G B=8"] = device_ms(lambda: g.band_row(plane, corners), launches=20)
+    if hasattr(g, "launch_floor"):
+        for pdl in (True, False):
+            tag = "on" if pdl else "off"
+            kernel_ms[f"G B=8 pdl={tag}"] = device_ms(
+                lambda: g.band_row(plane, corners, pdl=pdl), launches=20)
+            kernel_ms[f"G floor pdl={tag}"] = device_ms(
+                lambda: g.launch_floor(pdl=pdl), launches=20)
+    index = g.band_row_plain(torch.arange(g.H, dtype=torch.float32, device="cuda")[:, None]
+                             .expand(g.H, 4).contiguous(), corners)[:, 0, 0].long()
+    kernel_ms["G library index_select"] = device_ms(
+        lambda: plane.index_select(0, index), launches=20)
     return digest(*outputs)
 
 
@@ -1324,6 +1672,11 @@ def main() -> int:
     phase_1080p_control(device, first_block, pan=360 * (64 - 1) / (300 - 1))
     phase_online(device)
     phase_small_agreement(device)
+    native_ok = phase_native_io()
+    streamed = phase_streamed(device)
+    phase_checkpoint(device, streamed)
+    memory = phase_memory(device)
+    phase_file(device, native_ok)
     probes = phase_probes(device)
 
     kernels = [
@@ -1331,15 +1684,18 @@ def main() -> int:
          "source": "meshflow_tpu_torch/csrc/lk_level.cu",
          "replaces": "meshflow_tpu/kernels/_lk_pallas_onehot.py:73",
          "launches": launches["lk_level"],
+         "launches_streamed": streamed["launches"]["lk_level"],
          **{k: a[k] for k in LK_KEYS + ("ms_metric", "ms_online", "warps_per_sm", "regs")}},
         {"name": "backward_map", "route": "cuda",
          "source": "meshflow_tpu_torch/csrc/bmap.cu",
          "replaces": "meshflow_tpu/kernels/bmap_pallas.py:90",
-         "launches": launches["backward_map"], **b},
+         "launches": launches["backward_map"],
+         "launches_streamed": streamed["launches"]["backward_map"], **b},
         {"name": "lk_band", "route": "cuda",
          "source": "meshflow_tpu_torch/csrc/lk_band.cu",
          "replaces": "meshflow_tpu/kernels/_lk_pallas_band.py:89",
          "launches": launches_1080p["lk_band"],
+         "launches_streamed_1080p": memory["launches"]["lk_band"],
          **{k: c[k] for k in LK_KEYS}},
     ] + [
         {"name": name, "route": "cuda",

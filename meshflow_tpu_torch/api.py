@@ -2,8 +2,16 @@
 
 Constructor keywords, constants, the return tuple and the ValueError /
 IOError behaviour follow ``meshflow_tpu/api.py:54-273``.  ``stabilize``
-decodes the clip, runs ``_stabilize_frames`` on the device and encodes
-the result.  ``_stabilize_frames`` is the in-memory, device-render route:
+routes by MESHFLOW_STREAM as the JAX package does: ``auto`` (the default)
+and ``1`` take the two-pass streaming pipeline (``streaming.py``: O(chunk)
+pixels on the device, checkpoint/resume), ``0`` the in-memory route, which
+decodes the whole clip, runs ``_stabilize_frames`` on the device and
+encodes the result.  The JAX package streams only where its native host
+renderer is built; the port's stream renders on the device and needs no
+host renderer, so it has no precondition but ``visualize`` off.  Decode
+and encode go through the native libav library when it loads, else cv2
+(``io.video``).  ``_stabilize_frames`` is the in-memory, device-render
+route:
 
 0. above the track pixel budget, d x d box-downscaled track planes
    (motion.trackscale; d=3 at 1080p)
@@ -18,9 +26,9 @@ the result.  ``_stabilize_frames`` is the in-memory, device-render route:
    cropped frames at track geometry), stability (metrics)
 
 Stages are timed by ``utils.profiling.StageTimer`` (``last_timer``).  The
-streaming route, the host renderer, gray planes, checkpointing, the
-sharded path and ``visualize`` are not part of this port yet and raise
-where the JAX package would take them.  Online mode is ``online.py``.
+host renderer, gray planes, the sharded path and ``visualize`` are not
+part of this port yet and raise where the JAX package would take them.
+Online mode is ``online.py``.
 """
 
 from __future__ import annotations
@@ -31,13 +39,14 @@ import os
 import torch
 
 from meshflow_tpu_torch import config as cfg
+from meshflow_tpu_torch import streaming
 from meshflow_tpu_torch.config import MeshFlowConfig, validate_adaptive_weights_definition
 from meshflow_tpu_torch.io import video as video_io
 from meshflow_tpu_torch.kernels.fast import Keypoints
 from meshflow_tpu_torch.metrics.quality import cropping_and_distortion, stability_score
 from meshflow_tpu_torch.motion import trackscale
 from meshflow_tpu_torch.motion.pipeline import estimate_motion_chunked, prepare_frames
-from meshflow_tpu_torch.render.stabilize import crop_frames, render_stabilized
+from meshflow_tpu_torch.render.stabilize import crop_frames, intersect_crops, render_stabilized
 from meshflow_tpu_torch.solver.jacobi import jacobi_smooth
 from meshflow_tpu_torch.solver.weights import adaptive_weights
 from meshflow_tpu_torch.utils import grid, prng
@@ -124,9 +133,9 @@ class MeshFlowStabilizer:
             raise NotImplementedError("visualize=True is not ported yet")
         if config.track_planes != "bgr":
             raise NotImplementedError("track_planes='gray' is not ported yet")
-        if checkpoint_dir is not None:
-            raise NotImplementedError("checkpoint_dir is not ported yet")
         self.config = config
+        # Checkpoint/resume of the streaming route's pass 1 (checkpoint.py).
+        self.checkpoint_dir = checkpoint_dir
         self.device = torch.device(device if device is not None else default_device())
         self._key = prng.PRNGKey(seed, device=self.device)
         self.last_timer: StageTimer | None = None
@@ -142,6 +151,22 @@ class MeshFlowStabilizer:
         (cropping_ratio, distortion_score, stability_score)."""
         validate_adaptive_weights_definition(adaptive_weights_definition)
         timer = StageTimer(device=self.device)
+        self.last_timer = timer
+        mode = os.environ.get("MESHFLOW_STREAM", "auto")
+        if mode == "1" and self.config.visualize:
+            raise RuntimeError(
+                "MESHFLOW_STREAM=1 is incompatible with visualize=True "
+                "(the streaming pipeline does not retain frames); "
+                "unset one of them."
+            )
+        if mode in ("auto", "1") and not self.config.visualize:
+            result = streaming.stabilize_streamed(
+                input_path, output_path, adaptive_weights_definition, self.config,
+                self._key, timer, self.device, chunk=self.CHUNK,
+                checkpoint_dir=self.checkpoint_dir,
+            )
+            timer.report()
+            return result
         with timer.stage("decode"):
             frames_np, info = video_io.read_video(input_path)
         with timer.stage("host->device"):
@@ -217,10 +242,7 @@ class MeshFlowStabilizer:
                 )
                 stabilized.append(stab_c)
                 crops.append(crop_c)
-            crops = torch.stack(crops)
-            crop = torch.stack(
-                [crops[:, 0].amax(), crops[:, 1].amax(), crops[:, 2].amin(), crops[:, 3].amin()]
-            )
+            crop = intersect_crops(crops)
             cropped = torch.cat([crop_frames(s, crop, h, w) for s in stabilized])
         # Exposed for inspection: the last run's motion state and crop.
         self.last_motion, self.last_crop = motion, crop

@@ -6,9 +6,12 @@ Usage:
 
 Runs on the CUDA card unless ``--device cpu`` is given.  ``--no-metrics``
 turns serving mode on; without it the stabilizer's own default applies,
-so ``MESHFLOW_COMPUTE_METRICS=0`` also turns it on.  ``--visualize``,
-``--checkpoint-dir`` and ``--track-planes gray`` are not ported yet and
-raise NotImplementedError.
+so ``MESHFLOW_COMPUTE_METRICS=0`` also turns it on.  The clip streams
+through the two-pass pipeline unless ``MESHFLOW_STREAM=0``;
+``--checkpoint-dir DIR`` keeps its pass-1 motion state in DIR, so a rerun
+of the same clip (under any variant) starts at the solve.  ``--visualize``
+and ``--track-planes gray`` are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -60,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="color outside the warped image area (default: 0 0 255)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint-dir", default=None,
-                   help="persist pass-1 motion state here (not ported yet)")
+                   help="persist pass-1 motion state here: reruns of the same clip, "
+                   "under any variant, resume at the solver")
     p.add_argument("--visualize", action="store_true")
     p.add_argument("--track-planes", choices=("bgr", "gray"), default="bgr",
                    help="planes the feature trackers consume ('gray' is not ported yet)")

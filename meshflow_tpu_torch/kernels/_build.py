@@ -156,7 +156,8 @@ def library() -> ctypes.CDLL:
         "meshflow_probe_onehot_rowsel": [p, p, p, p, i, i, i, i],
         "meshflow_probe_aligned_dynslice": [p, p, p, i, i],
         "meshflow_probe_select_rows": [p, p, p, i, i, i],
-        "meshflow_probe_scalar_from_vmem": [p, p, p, i, i, i, i],
+        "meshflow_probe_scalar_from_vmem": [p, p, p, i, i, i, i, i],
+        "meshflow_probe_launch_floor": [i, i],
     }.items():
         getattr(lib, name).argtypes = args + [p]
         getattr(lib, name).restype = i

@@ -212,13 +212,17 @@ def run_scalar_from_vmem(device) -> list:
     # the probe's own expectation: its corners keep every base inside the plane
     rows = [(math.floor(c * 2 + 1) // 8) * 8 for c in corners[:, 0].tolist()]
     ok = bool(torch.equal(got, plane[rows][:, None, :]))
+    # the library call: the gather alone, one index_select of precomputed rows
+    index = torch.tensor(rows, device=device)
     times = _timed(device, lambda: g.band_row(plane, corners),
-                   lambda: g.band_row_plain(plane, corners))
+                   lambda: g.band_row_plain(plane, corners),
+                   lambda: plane.index_select(0, index))
     res = _result("scalar_from_vmem", f"B={g.B}", got, want, times, ok=ok)
     line = f"device={device.type}: scalar handoff {'OK' if ok else 'WRONG'}"
     if times["ms"] is not None:
         line += (f"; kernel {_us(times['ms'])} (host enqueue {_us(times['host_ms'])}), plain "
-                 f"{_us(times['plain_ms'])}, library none; kernel == plain: {res['ok']}")
+                 f"{_us(times['plain_ms'])}, library (index_select of the rows) "
+                 f"{_us(times['library_ms'])}; kernel == plain: {res['ok']}")
     print(line, flush=True)
     return [res]
 

@@ -8,7 +8,11 @@ tensors and taking ``band_row_plain`` for CPU tensors;
 ``v = 2 * corners[i, 0] + 1`` (float32), ``base = (floor(v) // 8) * 8`` and
 the result's row i is ``plane[dyn_start(base, H, 16)]``: a base past
 ``H - 16`` is clamped, a negative one wrapped by H first, as the probe's
-Pallas kernel takes them.  On the card the handoff is a warp shuffle.
+Pallas kernel takes them.  On the card each thread computes its
+feature's base itself and copies one float4 of the row; ``pdl`` launches
+the kernel programmatically (``csrc/probe_scalar_from_vmem.cu``).
+``launch_floor`` launches an empty kernel of the same grid, the same way,
+for the card's back-to-back launch floor.
 """
 
 from __future__ import annotations
@@ -24,7 +28,11 @@ B = 8
 ROWS = 16  # the probe's band height; only its first row is kept
 LANES = 128  # corners are (B, 128); column 0 holds the corner
 
-__all__ = ["H", "W", "B", "probe_inputs", "corners_from", "band_row", "band_row_plain"]
+THREADS = 256  # the kernel's block size
+PDL = True  # launch programmatically by default
+
+__all__ = ["H", "W", "B", "probe_inputs", "corners_from", "band_row", "band_row_plain",
+           "launch_floor"]
 
 
 def probe_inputs(seed: int = 0):
@@ -51,8 +59,9 @@ def band_row_plain(plane: torch.Tensor, corners: torch.Tensor) -> torch.Tensor:
     return plane[dyn_start(base, plane.shape[0], ROWS)][:, None, :]
 
 
-def band_row(plane: torch.Tensor, corners: torch.Tensor) -> torch.Tensor:
-    """(B, 1, W): row i is the plane row at feature i's band base."""
+def band_row(plane: torch.Tensor, corners: torch.Tensor, pdl: bool = PDL) -> torch.Tensor:
+    """(B, 1, W): row i is the plane row at feature i's band base.  `pdl`:
+    launch the kernel programmatically (card only)."""
     if on_cpu(plane, corners):
         return band_row_plain(plane, corners)
     if plane.dim() != 2 or corners.dim() != 2:
@@ -63,9 +72,17 @@ def band_row(plane: torch.Tensor, corners: torch.Tensor) -> torch.Tensor:
                          f"got plane {h}x{w}, B {b}")
     device = require("band_row", (plane, torch.float32, (h, w)), (corners, torch.float32, (b, ldc)))
     out = torch.empty(b, 1, w, dtype=torch.float32, device=device)
-    launch("meshflow_probe_scalar_from_vmem", device, plane, corners, out, h, w, b, ldc)
+    launch("meshflow_probe_scalar_from_vmem", device, plane, corners, out, h, w, b, ldc,
+           int(pdl))
     band_row.launches += 1
     return out
 
 
 band_row.launches = 0
+
+
+def launch_floor(b: int = B, w: int = W, pdl: bool = PDL, device="cuda") -> None:
+    """Launch an empty kernel of `band_row`'s grid for B = `b` and W = `w`,
+    the way `band_row` launches (card only; not counted in launches)."""
+    blocks = -(-b * (w // 4) // THREADS)
+    launch("meshflow_probe_launch_floor", torch.device(device), blocks, int(pdl))

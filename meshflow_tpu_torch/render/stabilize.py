@@ -328,22 +328,49 @@ def render_stabilized(
     The backward maps come from ``kernels/bmap_cuda.backward_map``: kernel
     B for CUDA tensors, the plain version for CPU tensors.
     """
-    from meshflow_tpu_torch.kernels.bmap_cuda import backward_map
-
     border = config.color_outside_image_area_bgr
-    stab_pos = unstab_grid + (stab_disp - unstab_disp)
-    bmap = backward_map(stab_pos, unstab_grid, config, frame_height, frame_width)
+    bmap = stabilized_maps(unstab_disp, stab_disp, unstab_grid, config, frame_height,
+                           frame_width)
     stabilized = torch.stack(
         [
             warp_frame(frames[i], BackwardMap(*(m[i] for m in bmap)), border)
             for i in range(frames.shape[0])
         ]
     )
+    return stabilized, block_crop(bmap, frame_height, frame_width)
+
+
+def stabilized_maps(
+    unstab_disp: torch.Tensor,
+    stab_disp: torch.Tensor,
+    unstab_grid: torch.Tensor,
+    config: MeshFlowConfig,
+    frame_height: int,
+    frame_width: int,
+) -> BackwardMap:
+    """Backward maps of a block from its displacement fields (F, R+1, C+1,
+    2), through ``kernels/bmap_cuda.backward_map``."""
+    from meshflow_tpu_torch.kernels.bmap_cuda import backward_map
+
+    stab_pos = unstab_grid + (stab_disp - unstab_disp)
+    return backward_map(stab_pos, unstab_grid, config, frame_height, frame_width)
+
+
+def block_crop(bmap: BackwardMap, frame_height: int, frame_width: int) -> torch.Tensor:
+    """A block's crop rectangle (4,) [left, top, right, bottom]: the
+    tightest of its frames' crop edges."""
     edges = crop_edges(bmap, frame_height, frame_width)
-    crop = torch.stack(
+    return torch.stack(
         [edges[:, 0].amax(), edges[:, 1].amax(), edges[:, 2].amin(), edges[:, 3].amin()]
     )
-    return stabilized, crop
+
+
+def intersect_crops(crops) -> torch.Tensor:
+    """The video's crop: the intersection of the blocks' crops."""
+    crops = torch.stack(list(crops))
+    return torch.stack(
+        [crops[:, 0].amax(), crops[:, 1].amax(), crops[:, 2].amin(), crops[:, 3].amin()]
+    )
 
 
 def crop_frames(

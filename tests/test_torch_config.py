@@ -186,15 +186,16 @@ def test_compute_metrics_env(monkeypatch):
     ({"MESHFLOW_TRACK_PLANES": "bgr"}, {}, False),
     ({"MESHFLOW_TRACK_PLANES": ""}, {}, False),
     ({"MESHFLOW_TRACK_PLANES": "gray"}, {"track_planes": "bgr"}, False),
-    ({"MESHFLOW_CHECKPOINT_DIR": "TMP"}, {}, True),
+    ({"MESHFLOW_CHECKPOINT_DIR": "TMP"}, {}, False),
     ({"MESHFLOW_CHECKPOINT_DIR": ""}, {}, False),
 ], ids=["planes-gray", "planes-bgr", "planes-empty", "argument-wins", "checkpoint",
         "checkpoint-empty"])
 def test_track_planes_and_checkpoint_env(monkeypatch, tmp_path, env, kwargs, raises):
     """The port reads MESHFLOW_TRACK_PLANES and MESHFLOW_CHECKPOINT_DIR with
-    the JAX constructor's priority (argument > environment > config); where
-    JAX would then track gray planes or keep checkpoints, which the port
-    does not have yet, it raises instead of running on the defaults."""
+    the JAX constructor's priority (argument > environment > config) and
+    keeps the same checkpoint directory; where JAX would then track gray
+    planes, which the port does not have yet, it raises instead of running
+    on the defaults."""
     from meshflow_tpu.api import MeshFlowStabilizer as JaxStabilizer
 
     from meshflow_tpu_torch.api import MeshFlowStabilizer
@@ -204,10 +205,11 @@ def test_track_planes_and_checkpoint_env(monkeypatch, tmp_path, env, kwargs, rai
     for name, value in env.items():
         monkeypatch.setenv(name, str(tmp_path) if value == "TMP" else value)
     js = JaxStabilizer(**kwargs)
-    assert (js.config.track_planes != "bgr" or js.checkpoint_dir is not None) is raises
+    assert (js.config.track_planes != "bgr") is raises
     if raises:
         with pytest.raises(NotImplementedError):
             MeshFlowStabilizer(device="cpu", **kwargs)
     else:
-        assert MeshFlowStabilizer(device="cpu", **kwargs).config == interop.config_from_fields(
-            dataclasses.asdict(js.config))
+        ts = MeshFlowStabilizer(device="cpu", **kwargs)
+        assert ts.config == interop.config_from_fields(dataclasses.asdict(js.config))
+        assert ts.checkpoint_dir == js.checkpoint_dir

@@ -460,3 +460,56 @@ def test_probe_g_kernel_matches_plain_on_card():
     got = scalar_from_vmem.band_row(plane, corners)
     assert torch.equal(got, scalar_from_vmem.band_row_plain(plane, corners))
     assert torch.equal(got[:, 0], plane[[0, 8, 40, 48, 48, 48, 48, 16]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdl", [True, False])
+@pytest.mark.parametrize("b", [1, 8, 32])
+def test_probe_g_kernel_matches_plain_at_every_size_on_card(b, pdl):
+    """B 1, 8 and 32, launched with and without programmatic dependent
+    launch: the probe's corners, corners whose base lies past H - 16
+    (clamped to H - 16) and negative corners (wrapped by H, then clamped)."""
+    dev = _card()
+    g = scalar_from_vmem
+    plane, _ = (t.to(dev) for t in g.probe_inputs())
+    rng = np.random.default_rng(b)
+    before = g.band_row.launches
+    for values in (rng.integers(0, (g.H - g.ROWS) // 2, b), rng.uniform(24.0, 72.0, b),
+                   rng.uniform(-40.0, 0.0, b)):
+        corners = g.corners_from(values).to(dev)
+        assert torch.equal(g.band_row(plane, corners, pdl=pdl), g.band_row_plain(plane, corners))
+    torch.cuda.synchronize()
+    assert g.band_row.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_streamed_matches_in_memory_on_card():
+    """The streaming pipeline on the card, three windows at CHUNK 8: frames
+    and metrics equal to ``_stabilize_frames`` at the same CHUNK, with the
+    frames resident and re-uploaded from the host cache."""
+    import os
+
+    from meshflow_tpu_torch import streaming
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+    from meshflow_tpu_torch.utils.profiling import StageTimer
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    canvas = rng.integers(0, 256, (60, 100, 3)).repeat(4, 0).repeat(4, 1).astype(np.uint8)
+    frames = np.stack([canvas[8 + t % 3 : 188 + t % 3, 2 * t : 2 * t + 320] for t in range(20)])
+    config = MeshFlowConfig(mesh_row_count=8, mesh_col_count=8, mesh_outlier_subframe_row_count=2,
+                            mesh_outlier_subframe_col_count=2, max_features_per_subframe=128)
+    stab = MeshFlowStabilizer(config=config, device=dev)
+    stab.CHUNK = 8
+    cropped, *metrics = stab._stabilize_frames(torch.from_numpy(frames).to(dev), 0)
+    for budget in ("4", "0"):
+        os.environ["MESHFLOW_HBM_FRAME_BUDGET_GB"] = budget
+        try:
+            writer = streaming.CaptureWriter()
+            got = streaming.stabilize_streamed(
+                streaming.ArrayClip(frames), writer, 0, config, stab._key,
+                StageTimer(enabled=False), dev, chunk=stab.CHUNK)
+        finally:
+            del os.environ["MESHFLOW_HBM_FRAME_BUDGET_GB"]
+        assert torch.equal(torch.from_numpy(writer.frames()), cropped.cpu()), budget
+        assert got == tuple(float(m) for m in metrics), budget
