@@ -25,6 +25,10 @@ From the root of a checkout, on a machine with one CUDA card:
    63-pair motion block) and at 1080p track_downscale=1 tiles (16 of
    270x480, 4 levels, shifts to +-20 px), with the launch shapes of both
    kernels;
+5a. kernels A and C on the gray route's planes (C=1): A against its plain
+   version at the motion, metric and online launches (16 tiles of
+   90x160x1), C bit for bit against A at the motion launch (the 1080p d=3
+   gray route's tiles), times beside the plain version and the bound;
 6. the main path: ``MeshFlowStabilizer(device="cuda")._stabilize_frames``
    on a synthetic 300-frame 640x360 clip (seeded texture, smooth pan and
    per-frame jitter), cold then warm, with every kernel's launch count;
@@ -57,6 +61,23 @@ From the root of a checkout, on a machine with one CUDA card:
    encoder, ``stabilize(in, out, 0)`` file to file on the card, the
    output's frame count, fps and size, decode and encode seconds;
    otherwise the line says why it was skipped;
+15a. gray: the gray-plane route (track_planes="gray") on the 640x360 clip
+   in memory, cold and warm beside BGR, kernel A and B launches as
+   reckoned (one map a block serves the BGR render and the gray metric
+   re-render); streamed at CHUNK 64, torch.equal to it; the 1080p clip at
+   d=3 with kernel C, warm wall and peak device memory beside BGR's;
+   online mode over 120 frames, p50 and p90 beside BGR's;
+15b. sharded: kernel A at the path's launches (a 4-shard block's 75-pair
+   motion and 75-frame metric launches and the 1-shard block's 300
+   pairs; the plain version timed at the motion launch) against its plain
+   version, kernel B at its 75- and 300-frame launches equal to its plain
+   version, then ``parallel.stabilize_sharded`` on the 640x360 clip with its
+   shards on ["cuda:0"] and ["cuda:0"] * 4: crop equal, metrics within
+   1e-3, frames within 1 LSB on > 99.9% of pixels, the halo solve
+   torch.equal to the replicated one, serving mode, launches and walls;
+15c. batch: ``parallel.stabilize_batch`` on two 640x360 x 120-frame clips
+   (array-backed in, capturing writer out) on one and two worker threads
+   of the card, each job equal to a solo ``stabilize``, launches and walls;
 16. the probes: ``python -m meshflow_tpu_torch.probes`` with the six
    probe kernels' launch counts set to 0 before it (probe F also on
    general float32 values), then each probe kernel against its plain
@@ -81,7 +102,11 @@ kernel's `ms` is at the main path's motion launch, `ms_8_pairs` at the
 8-pair case; kernel B's at the main path's launch, beside `host_ms`,
 `ms_online`, `host_ms_online` and `ms_1080p_mesh64`; `launches_streamed`
 counts a kernel's launches in the streamed 640x360 run (kernel C's in
-the streamed 1080p run).  Prints one JSON
+the streamed 1080p run); `launches_gray`, `launches_gray_online`,
+`launches_gray_1080p`, `launches_sharded` (4 shards) and `launches_batch`
+(2 workers) in those paths' runs; `*_gray` are A's and C's numbers at C=1
+(step 5a), `*_sharded` A's and B's at a 4-shard block's launches and
+`*_sharded_1_shard` at the 1-shard block's (step 15b).  Prints one JSON
 line of the kernels' launches, errors, times and bounds, then the last
 line ``{"ok": true, "device": {...}}``.  Any failed check or error exits
 non-zero before that line.  Without a CUDA device, or without the
@@ -200,11 +225,12 @@ def bound(ops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def lk_case(device, pairs, th, tw, max_level, max_shift, seed):
-    """Seeded textured tiles with known integer shifts: 16 tiles, C=3,
-    512 slots; returns (planes, dims, pts, valid, shifts).  The canvas and
-    its margin are those of kernel A's first check, so that check's inputs
-    stay the same."""
+def lk_case(device, pairs, th, tw, max_level, max_shift, seed, channels=3):
+    """Seeded textured tiles with known integer shifts: 16 tiles of
+    `channels` planes (3: BGR, 1: the gray route's), 512 slots; returns
+    (planes, dims, pts, valid, shifts).  The canvas and its margin are
+    those of kernel A's first check, so that check's inputs stay the
+    same."""
     import numpy as np
     import torch
 
@@ -212,7 +238,7 @@ def lk_case(device, pairs, th, tw, max_level, max_shift, seed):
     from meshflow_tpu_torch.kernels.pyramid import build_pyramid, pyramid_shapes
 
     rng = np.random.default_rng(seed)
-    s, c, k = 16, 3, 512
+    s, c, k = 16, channels, 512
     margin = 30  # a tile starts up to max_shift + 3 px either side of it
     check(max_shift + 3 <= margin, f"shift {max_shift} leaves the canvas")
     base = blurred_noise(rng, (th + 80, tw + 80, c))
@@ -247,12 +273,12 @@ class LkCase:
     metric block's launch.  A track is `levels` launches."""
 
     def __init__(self, device, name, pairs, shifted=True, th=90, tw=160, max_level=2,
-                 max_shift=6, seed=SEED):
+                 max_shift=6, seed=SEED, channels=3):
         self.name, self.shifted, self.levels = name, shifted, max_level + 1
-        self.shape = f"{pairs} pairs, 16 tiles {th}x{tw}x3, K 512, {self.levels} levels" + (
-            "" if shifted else ", shifted=False, init_pts")
+        self.shape = (f"{pairs} pairs, 16 tiles {th}x{tw}x{channels}, K 512, {self.levels} "
+                      "levels" + ("" if shifted else ", shifted=False, init_pts"))
         (self.planes, self.dims, self.pts, self.valid,
-         self.shifts) = lk_case(device, pairs, th, tw, max_level, max_shift, seed)
+         self.shifts) = lk_case(device, pairs, th, tw, max_level, max_shift, seed, channels)
         self.plain = None  # (corners, status, bound_ms, bound_by, stats), from lk_plain
 
     def track(self, level_fn=None):
@@ -353,6 +379,29 @@ def lk_cases(device):
     }
 
 
+def kernel_a_row(label, case, plain_batches):
+    """Kernel A against its plain version on `case`: A's gates, then device
+    ms per launch beside the plain version's (`plain_batches` batches of
+    one track; 0: not timed) and the bound.  Returns (row, max endpoint
+    distance)."""
+    from meshflow_tpu_torch.kernels import lk_cuda
+
+    kp, kst = case.track(lk_cuda.lk_level)
+    pp, pst, bound_ms, bound_by, stats = lk_plain(case)
+    _, _, max_err, _ = lk_gates(label, kp, kst, pp, pst, case.pts, case.valid, case.shifts)
+    ms = device_ms(lambda: case.track(lk_cuda.lk_level)) / case.levels
+    plain_ms = None
+    if plain_batches:
+        plain_ms = device_ms(lambda: case.track(lk_cuda.lk_level_plain), launches=1,
+                             batches=plain_batches) / case.levels
+    plain = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
+    print(f"{label} per launch ({case.shape}): kernel {ms:.4f} ms, plain {plain}, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); per launch {stats['setups']:.0f} set-ups, "
+          f"{stats['iters']:.0f} steps")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            **stats}, max_err
+
+
 def phase_kernel_a(device, cases):
     """LK kernel vs plain LK on the card at every case of `lk_cases`:
     gates, device time per launch beside the plain version's and the bound,
@@ -364,21 +413,9 @@ def phase_kernel_a(device, cases):
           f"block), {regs} registers/thread; at C=1: {lk_cuda.occupancy(1)}")
     out = {"max_abs_err": 0.0, "warps_per_sm": warps, "regs": regs}
     for name, case in cases.items():
-        kp, kst = case.track(lk_cuda.lk_level)
-        pp, pst, bound_ms, bound_by, stats = lk_plain(case)
-        _, _, max_err, _ = lk_gates(f"kernel A {name}", kp, kst, pp, pst, case.pts,
-                                    case.valid, case.shifts)
-        levels = case.levels
-        ms = device_ms(lambda: case.track(lk_cuda.lk_level)) / levels
         big = name in ("motion", "metric")
-        plain_ms = device_ms(lambda: case.track(lk_cuda.lk_level_plain), launches=1,
-                             batches=1 if big else 3) / levels
-        print(f"kernel A {name} per launch ({case.shape}): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); per launch "
-              f"{stats['setups']:.0f} set-ups, {stats['iters']:.0f} steps")
+        out[name], max_err = kernel_a_row(f"kernel A {name}", case, 1 if big else 3)
         out["max_abs_err"] = max(out["max_abs_err"], max_err)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, **stats}
     main = out["motion"]  # the main path's launch
     out.update(ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                bound_by=main["bound_by"], library_ms=None,
@@ -446,6 +483,66 @@ def phase_kernel_c(device, motion):
     return out
 
 
+def gray_lk_cases(device):
+    """Kernel A's main-path cases on the gray route's planes (C=1): the
+    motion launch (63 pairs), the metric launch (64 frames, shifted=False)
+    and the online launch (1 pair), 16 tiles of 90x160x1, K 512, 3 levels."""
+    return {
+        "motion": LkCase(device, "gray motion", 63, seed=SEED + 12, channels=1),
+        "metric": LkCase(device, "gray metric", 64, shifted=False, seed=SEED + 13, channels=1),
+        "online": LkCase(device, "gray online", 1, seed=SEED + 14, channels=1),
+    }
+
+
+def phase_gray_kernels(device):
+    """Kernels A and C on the gray route's planes (C=1) on the card: A
+    against its plain version at the motion, metric and online launches
+    (A's gates), device ms per launch beside the plain version's and the
+    bound; C at the motion launch (the 1080p d=3 gray route's tiles) bit
+    for bit against A, its ms beside A's; both launch shapes at C=1."""
+    import torch
+
+    from meshflow_tpu_torch.kernels import lk_band_cuda, lk_cuda
+    from meshflow_tpu_torch.kernels.lk import PAD
+
+    cases = gray_lk_cases(device)
+    out = {"max_abs_err": 0.0, "occupancy": lk_cuda.occupancy(1)}
+    for name, case in cases.items():
+        out[name], max_err = kernel_a_row(f"kernel A C=1 {name}", case,
+                                          1 if name != "online" else 3)
+        out["max_abs_err"] = max(out["max_abs_err"], max_err)
+
+    case = cases["motion"]
+
+    def band():
+        with fetch_route("band"):
+            return case.track()
+
+    before = lk_band_cuda.lk_level_band.launches
+    cp, cst = band()
+    check(lk_band_cuda.lk_level_band.launches == before + case.levels,
+          "kernel C launch count of one C=1 track")
+    ap, ast = case.track(lk_cuda.lk_level)
+    pp, pst, bound_ms, bound_by, _ = lk_plain(case)
+    _, _, max_err, _ = lk_gates("kernel C C=1 motion", cp, cst, pp, pst, case.pts, case.valid,
+                                case.shifts)
+    same_as_a = bool(torch.equal(cp, ap)) and bool(torch.equal(cst, ast))
+    check(same_as_a, "kernel C differs from kernel A at C=1")
+    ms = device_ms(band) / case.levels
+    dims = case.dims
+    top, low = (
+        lk_band_cuda.occupancy(1, patch, dims[lvl][0] + 2 * PAD, dims[lvl][1] + 2 * PAD)
+        for patch, lvl in ((lk_band_cuda.PN_TOP, case.levels - 1), (lk_band_cuda.PN_LOWER, 0))
+    )
+    out["band"] = {"ms": ms, "plain_ms": out["motion"]["plain_ms"], "bound_ms": bound_ms,
+                   "bound_by": bound_by, "max_abs_err": max_err}
+    print(f"kernel C C=1 motion per launch ({case.shape}): corners and status bit-identical "
+          f"to kernel A; kernel C {ms:.4f} ms, kernel A {out['motion']['ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); (warps/SM, shared B/block, warps/block, "
+          f"registers): A at C=1 {out['occupancy']}, C top {top}, C lower {low}")
+    return out
+
+
 # Operations kernel B's outputs need (its bound), per pixel, as the plain
 # version counts what its data needs (``return_work``): each cell lookup
 # is a few operations an axis (a compare, a min, a floor, a multiply and a
@@ -490,22 +587,38 @@ def degenerate_quads(stab):
     return out
 
 
-def bmap_inputs(device, name):
-    """(config, stab_pos, unstab_grid, h, w) of kernel B's case `name`,
-    seeded."""
+def bmap_inputs(device, name, cases=BMAP_CASES):
+    """(config, stab_pos, unstab_grid, h, w) of kernel B's case `name` of
+    `cases`, seeded."""
     import numpy as np
     import torch
 
     from meshflow_tpu_torch.config import MeshFlowConfig
     from meshflow_tpu_torch.utils import grid
 
-    w, h, mesh, sigma, frames, degenerate = BMAP_CASES[name]
+    w, h, mesh, sigma, frames, degenerate = cases[name]
     config = MeshFlowConfig(mesh_row_count=mesh, mesh_col_count=mesh)
     rng = np.random.default_rng(SEED + mesh + int(sigma))
     unstab = grid.vertex_grid(config, h, w, device=device)
     shape = (frames,) + tuple(unstab.shape) if frames > 1 else tuple(unstab.shape)
     stab = unstab + torch.from_numpy(rng.normal(0.0, sigma, shape).astype(np.float32)).to(device)
     return config, degenerate_quads(stab) if degenerate else stab, unstab, h, w
+
+
+def bmap_bound(config, stab, unstab, work):
+    """(bound_ms, bound_by, bound_ms if every pixel took every step and all
+    9 candidates) of one backward_map call, from the work its data needs
+    (``backward_map_plain(..., return_work=True)``)."""
+    pixels = work["lookups"].numel()
+    frames = stab.shape[0] if stab.dim() == 4 else 1
+    cells = config.mesh_row_count * config.mesh_col_count
+    count = {k: int(v.sum()) for k, v in work.items()}
+    ops = (BMAP_LOOKUP_OPS * count["lookups"] + BMAP_HOMOGRAPHY_OPS * count["homographies"]
+           + BMAP_BBOX_OPS * count["candidates"] + BMAP_CELL_OPS * frames * cells)
+    nbytes = (stab.numel() + unstab.numel()) * 4 + 9 * pixels
+    full, _ = bound((4 * BMAP_LOOKUP_OPS + 12 * BMAP_HOMOGRAPHY_OPS + 9 * BMAP_BBOX_OPS)
+                    * pixels + BMAP_CELL_OPS * frames * cells, nbytes)
+    return bound(ops, nbytes) + (full,)
 
 
 def host_clock_ms(fn, calls: int = 20) -> float:
@@ -595,14 +708,7 @@ def phase_kernel_b(device):
             line += f"; kernel {ms:.4f} ms (host clock {host_ms:.4f} ms), plain {plain_ms:.4f} ms"
             out[name] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms}
         if name == "main":
-            frames, cells = stab.shape[0], config.mesh_row_count * config.mesh_col_count
-            count = {k: int(v.sum()) for k, v in work.items()}
-            ops = (BMAP_LOOKUP_OPS * count["lookups"] + BMAP_HOMOGRAPHY_OPS * count["homographies"]
-                   + BMAP_BBOX_OPS * count["candidates"] + BMAP_CELL_OPS * frames * cells)
-            nbytes = (stab.numel() + unstab.numel()) * 4 + 9 * pixels
-            out["bound_ms"], out["bound_by"] = bound(ops, nbytes)
-            full, _ = bound((4 * BMAP_LOOKUP_OPS + 12 * BMAP_HOMOGRAPHY_OPS + 9 * BMAP_BBOX_OPS)
-                            * pixels + BMAP_CELL_OPS * frames * cells, nbytes)
+            out["bound_ms"], out["bound_by"], full = bmap_bound(config, stab, unstab, work)
             line += (f"; bound {out['bound_ms']:.4f} ms ({out['bound_by']}; every step and "
                      f"all 9 candidates a pixel: {full:.4f} ms)")
         print(line)
@@ -774,7 +880,7 @@ def phase_1080p(device, num_frames=300, h=1080, w=1920, pan=360):
     check(launches["lk_level"] == 0, "kernel A ran under MESHFLOW_LK_FETCH=band")
     check(launches["backward_map"] == blocks[1], "kernel B launch count (1080p)")
     check(torch.equal(out[0], out2[0]), "1080p warm pass output differs from cold pass")
-    return launches, frames[:64]
+    return launches, frames[:64], warm_s
 
 
 def phase_1080p_control(device, frames, pan):
@@ -810,15 +916,16 @@ def phase_1080p_control(device, frames, pan):
     return rows
 
 
-def phase_online(device, num_frames=120, h=360, w=640):
-    """Online mode on a jittery 640x360 clip with the default fetch."""
+def phase_online(device, num_frames=120, h=360, w=640, config=None, name="online"):
+    """Online mode on a jittery 640x360 clip with the default fetch (and
+    `config`, default the default one)."""
     import numpy as np
     import torch
 
     from meshflow_tpu_torch.online import OnlineMeshFlowStabilizer
 
     frames = synthetic_clip(num_frames, h, w, pan=60)
-    stab = OnlineMeshFlowStabilizer(device=device)
+    stab = OnlineMeshFlowStabilizer(config=config, device=device)
     levels = stab.config.lk_max_level(h, w) + 1
     reset_launches()
     times, outs, c_mean, p_mean = [], [], [], []
@@ -837,18 +944,18 @@ def phase_online(device, num_frames=120, h=360, w=640):
     c_jerk = np.abs(np.diff(np.asarray(c_mean[1:]), 2, axis=0)).mean()
     p_jerk = np.abs(np.diff(np.asarray(p_mean[1:]), 2, axis=0)).mean()
     p50, p90 = np.percentile(steady, 50), np.percentile(steady, 90)
-    print(f"online: {num_frames} frames {w}x{h}: first frame {times[0]:.3f} ms, per-frame "
+    print(f"{name}: {num_frames} frames {w}x{h}: first frame {times[0]:.3f} ms, per-frame "
           f"p50 {p50:.3f} ms p90 {p90:.3f} ms (frames 10-{num_frames - 1}); launches "
           f"{launches}; mean |second difference| of the frame-mean path: raw c_t "
           f"{c_jerk:.4f} px, stabilized p_t {p_jerk:.4f} px")
-    check(np.array_equal(outs[0], frames[0]), "online: first output differs from first input")
+    check(np.array_equal(outs[0], frames[0]), f"{name}: first output differs from first input")
     check(all(o.shape == (h, w, 3) and o.dtype == np.uint8 for o in outs),
-          "online: output shape or dtype")
+          f"{name}: output shape or dtype")
     check(launches["lk_level"] == levels * (num_frames - 1) and launches["lk_band"] == 0,
-          f"online: kernel A ran {launches['lk_level']} times, expected {levels} x "
+          f"{name}: kernel A ran {launches['lk_level']} times, expected {levels} x "
           f"{num_frames - 1}")
-    check(launches["backward_map"] == num_frames - 1, "online: kernel B launch count")
-    check(p_jerk < c_jerk, f"online: stabilized path {p_jerk} not smoother than {c_jerk}")
+    check(launches["backward_map"] == num_frames - 1, f"{name}: kernel B launch count")
+    check(p_jerk < c_jerk, f"{name}: stabilized path {p_jerk} not smoother than {c_jerk}")
     return {"first_ms": times[0], "p50_ms": p50, "p90_ms": p90, "launches": launches}
 
 
@@ -936,6 +1043,21 @@ def in_memory(stab, frames_np, device, variant=0):
     out = stab._stabilize_frames(torch.from_numpy(frames_np).to(device), variant)
     launches = read_launches()
     return out[0].cpu(), tuple(float(x) for x in out[1:]), launches
+
+
+def peak_in_memory(stab, frames_np, device):
+    """The in-memory route on host frames (``in_memory``) and its peak
+    device memory above what was held before, as ``phase_memory`` takes
+    it: (cropped frames on the host, metrics, launches, peak bytes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = in_memory(stab, frames_np, device)
+    torch.cuda.synchronize()
+    return out + (torch.cuda.max_memory_allocated() - base,)
 
 
 def check_streamed(name, got, ref):
@@ -1055,12 +1177,7 @@ def phase_memory(device, num_frames=300, h=1080, w=1920, pan=360):
     stab = MeshFlowStabilizer(device=device)
     peaks = {}
     with fetch_route("band"):
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        ref = in_memory(stab, frames, device)
-        peaks["in-memory"] = torch.cuda.max_memory_allocated() - base
+        *ref, peaks["in-memory"] = peak_in_memory(stab, frames, device)
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1094,7 +1211,7 @@ def phase_memory(device, num_frames=300, h=1080, w=1920, pan=360):
           f"{gib['streamed']:.3f} GiB (pass 1 {gib['streamed pass 1']:.3f}, solve, crop scan "
           f"and pass 2 {gib['streamed solve to pass 2']:.3f}); outputs equal; streamed {got[2]:.3f} s, launches "
           f"{got[3]}")
-    return {"peak_gib": gib, "launches": got[3], "seconds": got[2]}
+    return {"peak_gib": gib, "launches": got[3], "seconds": got[2], "frames": frames}
 
 
 FOURCC_MP4V = sum(ord(c) << (8 * i) for i, c in enumerate("mp4v"))
@@ -1144,6 +1261,269 @@ def phase_file(device, native_ok, num_frames=300, h=360, w=640, pan=120, fps=30.
           f"{stages.get('decode', 0.0):.3f} s, encode {stages.get('encode', 0.0):.3f} s; "
           f"output {count} frames at {out_fps} fps, {w}x{h}; metrics {metrics}; stages {stages}")
     return {"seconds": wall, "decode_s": stages.get("decode"), "encode_s": stages.get("encode")}
+
+
+def phase_gray(device, main_bgr, warm_1080p_s, memory, online_bgr, num_frames=300, h=360,
+               w=640, pan=120):
+    """The gray-plane route (track_planes="gray") on the card, beside the
+    BGR runs of this process: the 640x360 x 300 clip in memory (cold, warm,
+    crop, metrics, launches of A and B against the reckoned counts); the
+    same streamed at CHUNK 64 against it (frames torch.equal, metrics
+    equal); the 1080p x 300 clip at d=3 with kernel C (peak device memory
+    as ``phase_memory`` takes it, warm wall); online mode over 120 frames."""
+    import math
+
+    import torch
+
+    from meshflow_tpu_torch import streaming
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+    from meshflow_tpu_torch.config import MeshFlowConfig
+
+    gray = MeshFlowConfig(track_planes="gray")
+    out = {}
+    frames_np = synthetic_clip(num_frames, h, w, pan=pan)
+    frames = torch.from_numpy(frames_np).to(device)
+    stab = MeshFlowStabilizer(config=gray, device=device)
+    reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    first = stab._stabilize_frames(frames, 0)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - start
+    launches = read_launches()
+    start = time.perf_counter()
+    second = stab._stabilize_frames(frames, 0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - start
+    crop, metrics, mean_dx = check_output("gray", stab, first, num_frames, h, w, pan, device)
+    levels = gray.lk_max_level(h, w) + 1
+    blocks = math.ceil((num_frames - 1) / (stab.CHUNK - 1)), math.ceil(num_frames / stab.CHUNK)
+    check(launches["lk_level"] == levels * sum(blocks) and launches["lk_band"] == 0
+          and launches["backward_map"] == blocks[1],
+          f"gray: launches {launches}, expected kernel A {levels} x {sum(blocks)}, kernel B "
+          f"{blocks[1]} (one map a block, shared by the BGR render and the gray re-render)")
+    check(torch.equal(first[0], second[0]), "gray: warm pass output differs from cold pass")
+    print(f"gray: {num_frames} frames {w}x{h}, one gray plane tracked, BGR rendered: cold "
+          f"{cold_s:.3f} s, warm {warm_s:.3f} s ({num_frames / warm_s:.2f} fps) beside BGR's "
+          f"cold {main_bgr[1]:.3f} s, warm {main_bgr[2]:.3f} s; launches {launches}; crop "
+          f"{crop}; cropping ratio {metrics[0]:.6f}, distortion {metrics[1]:.6f}, stability "
+          f"{metrics[2]:.6f}; last-frame mean x displacement {mean_dx:.3f} px")
+    out["main"] = {"cold_s": cold_s, "warm_s": warm_s, "launches": launches, "crop": crop,
+                   "metrics": metrics}
+
+    ref = (first[0].cpu(), tuple(float(x) for x in first[1:]))
+    del first, second, frames
+    got = run_streamed(stab, streaming.ArrayClip(frames_np), device)
+    check_streamed("gray streamed CHUNK 64", got, ref)
+    lk, bmap = stream_launch_counts(gray, h, w, num_frames, stab.CHUNK)
+    check(got[3]["lk_level"] == lk and got[3]["backward_map"] == bmap
+          and got[3]["lk_band"] == 0,
+          f"gray streamed: launches {got[3]}, expected kernel A {lk}, kernel B {bmap}")
+    print(f"gray streamed CHUNK 64: frames and metrics equal to gray _stabilize_frames; "
+          f"{got[2]:.3f} s; launches {got[3]}")
+    out["streamed"] = {"seconds": got[2], "launches": got[3]}
+
+    frames_np = memory["frames"]
+    n, h, w = frames_np.shape[:3]
+    stab = MeshFlowStabilizer(config=gray, device=device)
+    th, tw = gray.track_shape(h, w)
+    with fetch_route("band"):
+        cropped, metrics, launches, peak = peak_in_memory(stab, frames_np, device)
+        frames = torch.from_numpy(frames_np).to(device)
+        start = time.perf_counter()
+        again = stab._stabilize_frames(frames, 0)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - start
+    levels = gray.lk_max_level(th, tw) + 1
+    blocks = math.ceil((n - 1) / (stab.CHUNK - 1)), math.ceil(n / stab.CHUNK)
+    check(launches["lk_band"] == levels * sum(blocks) and launches["lk_level"] == 0
+          and launches["backward_map"] == blocks[1],
+          f"gray 1080p: launches {launches}, expected kernel C {levels} x {sum(blocks)}, "
+          f"kernel B {blocks[1]}")
+    check(torch.equal(again[0].cpu(), cropped), "gray 1080p: warm output differs from cold")
+    check(all(math.isfinite(x) for x in metrics), f"gray 1080p: metrics {metrics}")
+    gib, bgr_gib = peak / (1 << 30), memory["peak_gib"]["in-memory"]
+    print(f"gray 1080p (d={gray.resolve_track_downscale(h, w)}, tracking {tw}x{th}x1, band): "
+          f"{n} frames {w}x{h}: warm {warm:.3f} s ({n / warm:.2f} fps) beside BGR's "
+          f"{warm_1080p_s:.3f} s; peak device memory of the in-memory route {gib:.3f} GiB "
+          f"beside BGR's {bgr_gib:.3f} GiB; launches {launches}; crop "
+          f"{stab.last_crop.tolist()}; metrics {metrics}")
+    out["1080p"] = {"warm_s": warm, "peak_gib": gib, "launches": launches}
+    del frames, again
+
+    online = phase_online(device, config=gray, name="online gray")
+    print(f"online gray beside BGR: first frame {online['first_ms']:.3f} ms against "
+          f"{online_bgr['first_ms']:.3f}, p50 {online['p50_ms']:.3f} against "
+          f"{online_bgr['p50_ms']:.3f}, p90 {online['p90_ms']:.3f} against "
+          f"{online_bgr['p90_ms']:.3f}")
+    out["online"] = online
+    return out
+
+
+# Kernel B's launches on the sharded path, 640x360 x 300 frames: a shard
+# maps its whole block in one call (75 frames at 4 shards, 300 at 1).
+SHARDED_BMAP_CASES = {
+    "4 shards": (640, 360, 16, 1.5, 75, False),
+    "1 shard": (640, 360, 16, 1.5, 300, False),
+}
+
+
+def phase_sharded_kernels(device):
+    """Kernels A and B at the launch shapes of ``phase_sharded`` (one launch
+    per shard and level, its whole block): A at a 4-shard block's motion
+    launch (75 pairs of 16 tiles of 90x160x3) and metric launch (75
+    frames, shifted=False) against its plain version with A's gates, and
+    at the 1-shard block's motion launch (300 pairs; the plain version
+    timed at the first only); B at a 4-shard block (75 frames) and the
+    1-shard block (300 frames) equal to its plain version; device ms
+    beside the plain version's and the bound."""
+    import torch
+
+    from meshflow_tpu_torch.kernels import bmap_cuda
+    from meshflow_tpu_torch.render.stabilize import crop_edges
+
+    out = {"max_abs_err": 0.0}
+    for name, case, plain_batches in (
+        ("motion", LkCase(device, "sharded motion", 75, seed=SEED + 22), 1),
+        ("metric", LkCase(device, "sharded metric", 75, shifted=False, seed=SEED + 23), 0),
+        ("motion 1 shard", LkCase(device, "sharded motion 1 shard", 300, seed=SEED + 24), 0),
+    ):
+        out[name], max_err = kernel_a_row(f"kernel A sharded {name}", case, plain_batches)
+        out["max_abs_err"] = max(out["max_abs_err"], max_err)
+    out["bmap_max_abs_err"] = 0.0
+    for name in SHARDED_BMAP_CASES:
+        config, stab, unstab, h, w = bmap_inputs(device, name, SHARDED_BMAP_CASES)
+        kb = bmap_cuda.backward_map(stab, unstab, config, h, w)
+        pb, work = bmap_cuda.backward_map_plain(stab, unstab, config, h, w, return_work=True)
+        equal = [bool(torch.equal(k, p)) for k, p in zip(kb, pb)]
+        edges_equal = bool(torch.equal(crop_edges(kb, h, w), crop_edges(pb, h, w)))
+        check(all(equal) and edges_equal,
+              f"kernel B differs from the plain version at the sharded launch ({name}): maps "
+              f"and coverage equal {equal}, crop edges equal {edges_equal}")
+        cov = pb.covered
+        err = max((k - p)[cov].abs().max().item() for k, p in zip(kb[:2], pb[:2]))
+        out["bmap_max_abs_err"] = max(out["bmap_max_abs_err"], err)
+        bound_ms, bound_by, _ = bmap_bound(config, stab, unstab, work)
+        del kb, pb, work
+        ms = device_ms(lambda: bmap_cuda.backward_map(stab, unstab, config, h, w))
+        plain_ms = device_ms(lambda: bmap_cuda.backward_map_plain(stab, unstab, config, h, w),
+                             launches=1, batches=1)
+        print(f"kernel B sharded {name} ({stab.shape[0]} frames 640x360, mesh 16): map_x, "
+              f"map_y, covered and crop edges equal to the plain version; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        out[f"bmap {name}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by}
+    return out
+
+
+def phase_sharded(device, num_frames=300, h=360, w=640, pan=120):
+    """``parallel.stabilize_sharded`` on the 640x360 x 300 clip, its shards
+    over ["cuda:0"] and ["cuda:0"] * 4 (blocks of 75 >= omega, so the halo
+    solver engages): crop equal, metrics within 1e-3 relative, frames <= 1
+    LSB apart on > 99.9% of pixels (the JAX package's shard-count gates);
+    at 4 shards "halo" torch.equal to "replicated"; serving mode the same
+    pixels and NaN metrics; the wall of each run and its launches."""
+    import math
+
+    import torch
+
+    from meshflow_tpu_torch.config import MeshFlowConfig
+    from meshflow_tpu_torch.parallel.pipeline import stabilize_sharded
+    from meshflow_tpu_torch.utils import prng
+
+    config = MeshFlowConfig()
+    frames = torch.from_numpy(synthetic_clip(num_frames, h, w, pan=pan)).to(device)
+    key = prng.PRNGKey(SEED, device=device)
+    levels = config.lk_max_level(h, w) + 1
+    runs = {}
+    for name, shards, mode, cfg in (
+        ("1 shard", 1, "halo", config),
+        ("4 shards", 4, "halo", config),
+        ("4 shards replicated", 4, "replicated", config),
+        ("4 shards serving", 4, "halo", MeshFlowConfig(compute_metrics=False)),
+    ):
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = stabilize_sharded(frames, key, cfg, h, w, devices=[device + ":0"] * shards,
+                                solver_mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = read_launches()
+        metrics = tuple(float(x) for x in out[2:])
+        runs[name] = (out[0], out[1].tolist(), metrics, wall, launches)
+        lk = levels * shards * (2 if cfg.compute_metrics else 1)
+        check(launches["lk_level"] == lk and launches["backward_map"] == shards
+              and launches["lk_band"] == 0,
+              f"sharded {name}: launches {launches}, expected kernel A {lk}, kernel B {shards}")
+        check(tuple(out[0].shape) == (num_frames, h, w, 3) and out[0].dtype == torch.uint8,
+              f"sharded {name}: output {tuple(out[0].shape)} {out[0].dtype}")
+        print(f"sharded {name}: {num_frames} frames {w}x{h}: {wall:.3f} s; crop "
+              f"{runs[name][1]}; metrics {metrics}; launches {launches}")
+    one, four = runs["1 shard"], runs["4 shards"]
+    check(one[1] == four[1], f"sharded: crops {one[1]} (1 shard) and {four[1]} (4) differ")
+    rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(four[2], one[2])]
+    check(max(rel) <= 1e-3, f"sharded: 4-shard metrics off the 1-shard run by {rel}")
+    near = ((four[0].int() - one[0].int()).abs() <= 1).float().mean().item()
+    check(near > 0.999, f"sharded: frames within 1 LSB on {near} of pixels")
+    rep = runs["4 shards replicated"]
+    check(torch.equal(four[0], rep[0]) and four[1:3] == rep[1:3],
+          "sharded: halo solve differs from the replicated one")
+    serve = runs["4 shards serving"]
+    check(torch.equal(serve[0], four[0]) and serve[1] == four[1]
+          and all(math.isnan(x) for x in serve[2][:2]) and serve[2][2] == four[2][2],
+          "sharded: serving mode differs")
+    print(f"sharded: 4 shards against 1: crop equal, metric rel diffs {rel}, frames within "
+          f"1 LSB on {near:.6f} of pixels; halo torch.equal to replicated; serving mode same "
+          f"pixels, NaN metrics")
+    return {name: {"seconds": r[3], "launches": r[4]} for name, r in runs.items()}
+
+
+def phase_batch(device, num_frames=120, h=360, w=640):
+    """``parallel.stabilize_batch`` on two 640x360 x 120-frame clips
+    (``streaming.ArrayClip`` in, ``CaptureWriter`` out: the card has no
+    codec) with devices ["cuda:0"] and ["cuda:0"] * 2 (two worker threads
+    on one card): each job's metrics and frames equal a solo ``stabilize``
+    of its clip; the wall of each run and its launches."""
+    import torch
+
+    from meshflow_tpu_torch import streaming
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+    from meshflow_tpu_torch.parallel.batch import BatchJob, stabilize_batch
+
+    clips = [synthetic_clip(num_frames, h, w, pan=60 + 30 * i) for i in range(2)]
+    solo = []
+    for frames in clips:
+        writer = streaming.CaptureWriter()
+        metrics = MeshFlowStabilizer(device=device).stabilize(
+            streaming.ArrayClip(frames), writer, 0)
+        solo.append((writer.frames(), metrics))
+    stab = MeshFlowStabilizer(device=device)
+    lk, bmap = stream_launch_counts(stab.config, h, w, num_frames, stab.CHUNK)
+    out = {}
+    for workers in (1, 2):
+        jobs = [BatchJob(streaming.ArrayClip(f), streaming.CaptureWriter(), 0) for f in clips]
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        results = stabilize_batch(jobs, devices=[device + ":0"] * workers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = read_launches()
+        for i, (job, metrics) in enumerate(zip(jobs, results)):
+            check(metrics == solo[i][1],
+                  f"batch ({workers} workers): job {i} metrics {metrics} != solo {solo[i][1]}")
+            check(torch.equal(torch_frames(job.output_path.frames()), torch_frames(solo[i][0])),
+                  f"batch ({workers} workers): job {i} frames differ from the solo run's")
+        check(launches["lk_level"] == 2 * lk and launches["backward_map"] == 2 * bmap
+              and launches["lk_band"] == 0,
+              f"batch ({workers} workers): launches {launches}, expected kernel A {2 * lk}, "
+              f"kernel B {2 * bmap}")
+        print(f"batch: 2 clips x {num_frames} frames {w}x{h} on {workers} worker(s) of one "
+              f"card: {wall:.3f} s; each job's frames and metrics equal its solo run; "
+              f"launches {launches}")
+        out[workers] = {"seconds": wall, "launches": launches}
+    return out
 
 
 # The probe kernels of the kernels line: name -> (CUDA source in csrc/,
@@ -1667,17 +2047,44 @@ def main() -> int:
     a = phase_kernel_a(device, cases)
     b = phase_kernel_b(device)
     c = phase_kernel_c(device, cases["motion"])
+    g = phase_gray_kernels(device)
     launches, cold_s, warm_s = phase_main_path(device)
-    launches_1080p, first_block = phase_1080p(device)
+    launches_1080p, first_block, warm_1080p_s = phase_1080p(device)
     phase_1080p_control(device, first_block, pan=360 * (64 - 1) / (300 - 1))
-    phase_online(device)
+    online = phase_online(device)
     phase_small_agreement(device)
     native_ok = phase_native_io()
     streamed = phase_streamed(device)
     phase_checkpoint(device, streamed)
     memory = phase_memory(device)
+    gray = phase_gray(device, (launches, cold_s, warm_s), warm_1080p_s, memory, online)
+    sk = phase_sharded_kernels(device)
+    sharded = phase_sharded(device)
+    batch = phase_batch(device)
     phase_file(device, native_ok)
     probes = phase_probes(device)
+
+    def path_launches(name):
+        return {"launches_gray": gray["main"]["launches"][name],
+                "launches_gray_online": gray["online"]["launches"][name],
+                "launches_sharded": sharded["4 shards"]["launches"][name],
+                "launches_batch": batch[2]["launches"][name]}
+
+    gray_a = {f"{k}_gray": g["motion"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    gray_a.update(ms_gray_metric=g["metric"]["ms"], ms_gray_online=g["online"]["ms"],
+                  warps_per_sm_gray=g["occupancy"][0])
+    sharded_a = {f"{k}_sharded": sk["motion"][k]
+                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    sharded_a.update(ms_sharded_metric=sk["metric"]["ms"],
+                     bound_ms_sharded_metric=sk["metric"]["bound_ms"],
+                     ms_sharded_1_shard=sk["motion 1 shard"]["ms"],
+                     bound_ms_sharded_1_shard=sk["motion 1 shard"]["bound_ms"],
+                     max_abs_err_sharded=sk["max_abs_err"])
+    sharded_b = {f"{k}_sharded": sk["bmap 4 shards"][k]
+                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    sharded_b.update({f"{k}_sharded_1_shard": sk["bmap 1 shard"][k]
+                      for k in ("ms", "plain_ms", "bound_ms")},
+                     max_abs_err_sharded=sk["bmap_max_abs_err"])
 
     kernels = [
         {"name": "lk_level", "route": "cuda",
@@ -1685,18 +2092,24 @@ def main() -> int:
          "replaces": "meshflow_tpu/kernels/_lk_pallas_onehot.py:73",
          "launches": launches["lk_level"],
          "launches_streamed": streamed["launches"]["lk_level"],
-         **{k: a[k] for k in LK_KEYS + ("ms_metric", "ms_online", "warps_per_sm", "regs")}},
+         **path_launches("lk_level"),
+         **{k: a[k] for k in LK_KEYS + ("ms_metric", "ms_online", "warps_per_sm", "regs")},
+         **gray_a, "max_abs_err_gray": g["max_abs_err"], **sharded_a},
         {"name": "backward_map", "route": "cuda",
          "source": "meshflow_tpu_torch/csrc/bmap.cu",
          "replaces": "meshflow_tpu/kernels/bmap_pallas.py:90",
          "launches": launches["backward_map"],
-         "launches_streamed": streamed["launches"]["backward_map"], **b},
+         "launches_streamed": streamed["launches"]["backward_map"],
+         **path_launches("backward_map"),
+         "launches_gray_1080p": gray["1080p"]["launches"]["backward_map"], **b, **sharded_b},
         {"name": "lk_band", "route": "cuda",
          "source": "meshflow_tpu_torch/csrc/lk_band.cu",
          "replaces": "meshflow_tpu/kernels/_lk_pallas_band.py:89",
          "launches": launches_1080p["lk_band"],
          "launches_streamed_1080p": memory["launches"]["lk_band"],
-         **{k: c[k] for k in LK_KEYS}},
+         "launches_gray_1080p": gray["1080p"]["launches"]["lk_band"],
+         **{k: c[k] for k in LK_KEYS},
+         **{f"{k}_gray": g["band"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
     ] + [
         {"name": name, "route": "cuda",
          "source": f"meshflow_tpu_torch/csrc/{PROBE_KERNELS[name][0]}", **row}

@@ -14,21 +14,27 @@ and encode go through the native libav library when it loads, else cv2
 route:
 
 0. above the track pixel budget, d x d box-downscaled track planes
-   (motion.trackscale; d=3 at 1080p)
-1. BGR -> gray, FAST per subframe, at track geometry (motion.pipeline)
+   (motion.trackscale; d=3 at 1080p); under track_planes="gray" (or
+   MESHFLOW_TRACK_PLANES=gray) their exact cv2 gray, one plane
+1. gray, FAST per subframe, at track geometry (motion.pipeline)
 2. LK over all adjacent pairs (kernel A, or C under MESHFLOW_LK_FETCH=band),
    RANSAC, propagation, cumsum; velocities and homographies scaled back to
    full resolution
 3. adaptive weights + banded Jacobi                  (solver)
 4. backward map (kernel B), warp, crop edges; crop + stretch (render),
-   at full resolution
-5. cropping ratio + distortion (the LK kernel again, on box-downscaled
-   cropped frames at track geometry), stability (metrics)
+   at full resolution, on the BGR frames
+5. cropping ratio + distortion (the LK kernel again, at track geometry:
+   on box-downscaled cropped frames, or, for gray planes at d=1, on the
+   gray planes warped through step 4's maps and crop), stability
+   (metrics)
 
-Stages are timed by ``utils.profiling.StageTimer`` (``last_timer``).  The
-host renderer, gray planes, the sharded path and ``visualize`` are not
-part of this port yet and raise where the JAX package would take them.
-Online mode is ``online.py``.
+Stages are timed by ``utils.profiling.StageTimer`` (``last_timer``).
+``visualize=True`` takes the in-memory route and shows each input frame
+above its output (``_display_loop``) once the output is written.  The
+JAX package's host renderer is left behind: the port renders on the
+device, and its gray route keeps the BGR frames there for the output.
+Online mode is ``online.py``; the frame-sharded and multi-clip paths are
+``parallel/``.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from meshflow_tpu_torch.kernels.fast import Keypoints
 from meshflow_tpu_torch.metrics.quality import cropping_and_distortion, stability_score
 from meshflow_tpu_torch.motion import trackscale
 from meshflow_tpu_torch.motion.pipeline import estimate_motion_chunked, prepare_frames
-from meshflow_tpu_torch.render.stabilize import crop_frames, intersect_crops, render_stabilized
+from meshflow_tpu_torch.render.stabilize import crop_frames, intersect_crops, render_block
 from meshflow_tpu_torch.solver.jacobi import jacobi_smooth
 from meshflow_tpu_torch.solver.weights import adaptive_weights
 from meshflow_tpu_torch.utils import grid, prng
@@ -129,10 +135,6 @@ class MeshFlowStabilizer:
                 compute_metrics = env not in ("0", "false", "no", "off")
         if compute_metrics is not None and compute_metrics != config.compute_metrics:
             config = dataclasses.replace(config, compute_metrics=compute_metrics)
-        if config.visualize:
-            raise NotImplementedError("visualize=True is not ported yet")
-        if config.track_planes != "bgr":
-            raise NotImplementedError("track_planes='gray' is not ported yet")
         self.config = config
         # Checkpoint/resume of the streaming route's pass 1 (checkpoint.py).
         self.checkpoint_dir = checkpoint_dir
@@ -179,6 +181,8 @@ class MeshFlowStabilizer:
         with timer.stage("encode"):
             video_io.write_video(output_path, cropped_np, info.fps, info.fourcc)
         timer.report()
+        if self.config.visualize:
+            self._display_loop(frames_np, cropped_np, info.fps)
         return float(cropping_ratio), float(distortion), float(stability)
 
     # ------------------------------------------------------------------
@@ -201,11 +205,17 @@ class MeshFlowStabilizer:
         unstab_grid = grid.vertex_grid(config, h, w, device=self.device)
 
         # Track geometry: detection, motion and the metric pass run at
-        # (th, tw) on box-downscaled planes; solver and render at (h, w).
+        # (th, tw) on box-downscaled planes (gray planes under
+        # track_planes="gray"); solver and render at (h, w) on the BGR
+        # frames.
         d_track = config.resolve_track_downscale(h, w)
         th, tw = config.track_shape(h, w)
-        frames_track = trackscale.to_track_planes_dev(frames, config) if d_track > 1 else frames
+        frames_track = trackscale.to_track_planes_dev(frames, config)
         sx, sy = trackscale.scale_factors(h, w, config)
+        # Gray planes at full size: the metric pass re-renders them through
+        # the BGR render's maps and crop (the JAX package's default metric
+        # source); otherwise it takes the track planes of the cropped output.
+        rerender = trackscale.metric_rerender(config, h, w)
 
         with timer.stage("detect"):
             keypoints, _ = prepare_frames(frames_track, config)
@@ -233,15 +243,15 @@ class MeshFlowStabilizer:
         # Warp in blocks; the video crop is the intersection of the
         # per-block crops.
         with timer.stage("warp+crop"):
-            stabilized, crops = [], []
+            stabilized, stabilized_track, crops = [], [], []
             for start in range(0, num_frames, chunk):
                 sl = slice(start, start + chunk)
-                stab_c, crop_c = render_stabilized(
-                    frames[sl], motion.displacements[sl], stab_disp[sl], unstab_grid,
-                    config, h, w,
-                )
-                stabilized.append(stab_c)
-                crops.append(crop_c)
+                s, s_track, c = render_block(
+                    frames[sl], frames_track[sl] if rerender else None,
+                    motion.displacements[sl], stab_disp[sl], unstab_grid, config, h, w)
+                stabilized.append(s)
+                stabilized_track.append(s_track)
+                crops.append(c)
             crop = intersect_crops(crops)
             cropped = torch.cat([crop_frames(s, crop, h, w) for s in stabilized])
         # Exposed for inspection: the last run's motion state and crop.
@@ -257,9 +267,10 @@ class MeshFlowStabilizer:
             metric_key = prng.fold_in(self._key, 2)
             for start in range(0, num_frames, chunk):
                 sl = slice(start, start + chunk)
-                cropped_c = cropped[sl]
-                if d_track > 1:
-                    cropped_c = trackscale.to_track_planes_dev(cropped_c, config)
+                if rerender:
+                    cropped_c = crop_frames(stabilized_track[start // chunk], crop, h, w)
+                else:
+                    cropped_c = trackscale.to_track_planes_dev(cropped[sl], config)
                 r, d = cropping_and_distortion(
                     Keypoints(*(a[sl] for a in keypoints)),
                     frames_track[sl],
@@ -275,3 +286,20 @@ class MeshFlowStabilizer:
             cropping_ratio = torch.cat(ratios).mean()
             distortion_score = torch.cat(distortions).amin()
         return cropped, cropping_ratio, distortion_score, stability
+
+    # ------------------------------------------------------------------
+    def _display_loop(self, unstabilized, cropped, fps):
+        """The reference's visualize loop: each unstabilized frame above its
+        cropped output in one window, the clip looping until Q."""
+        import cv2
+        import numpy as np
+
+        ms_per_frame = int(1000 / fps) if fps > 0 else 33
+        while True:
+            for i in range(len(unstabilized)):
+                cv2.imshow(
+                    "unstabilized and stabilized video",
+                    np.vstack((unstabilized[i], cropped[i])),
+                )
+                if cv2.waitKey(ms_per_frame) & 0xFF == ord("q"):
+                    return

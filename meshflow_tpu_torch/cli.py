@@ -9,9 +9,10 @@ turns serving mode on; without it the stabilizer's own default applies,
 so ``MESHFLOW_COMPUTE_METRICS=0`` also turns it on.  The clip streams
 through the two-pass pipeline unless ``MESHFLOW_STREAM=0``;
 ``--checkpoint-dir DIR`` keeps its pass-1 motion state in DIR, so a rerun
-of the same clip (under any variant) starts at the solve.  ``--visualize``
-and ``--track-planes gray`` are not ported yet and raise
-NotImplementedError.
+of the same clip (under any variant) starts at the solve.
+``--track-planes gray`` tracks the frames' exact gray planes (the output
+stays BGR); ``--visualize`` takes the in-memory route and shows each
+input frame above its output until Q is pressed.
 """
 
 from __future__ import annotations
@@ -65,9 +66,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-dir", default=None,
                    help="persist pass-1 motion state here: reruns of the same clip, "
                    "under any variant, resume at the solver")
-    p.add_argument("--visualize", action="store_true")
+    p.add_argument("--visualize", action="store_true",
+                   help="show each input frame above its output after the run, "
+                   "looping until Q (needs a display; takes the in-memory route)")
     p.add_argument("--track-planes", choices=("bgr", "gray"), default="bgr",
-                   help="planes the feature trackers consume ('gray' is not ported yet)")
+                   help="planes the feature trackers consume: 'bgr' (default, the "
+                   "reference's) or 'gray' (one exact cv2 gray plane; the output "
+                   "stays BGR)")
     p.add_argument("--no-metrics", action="store_true",
                    help="serving mode: skip the cropping-ratio/distortion evaluation "
                    "pass; those two scores print as NaN, the output video is "

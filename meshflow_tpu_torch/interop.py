@@ -67,13 +67,15 @@ def online_state_from_numpy(
     """A JAX ``OnlineState`` as the port's: the previous frame's keypoints
     ((S, K) positions, scores, valid), both (OMEGA+1, R+1, C+1, 2) windows
     and the step count are carried across; the previous frame's tile
-    planes are rebuilt from ``prev_frame`` ((H, W, 3) uint8) by the port's
-    ``online_prepare`` (the JAX state's pyramid layout depends on its
-    tracker backend)."""
+    planes are rebuilt from ``prev_frame`` ((H, W, 3) uint8 BGR; gray
+    planes under track_planes="gray") by the port's ``online_prepare``
+    (the JAX state's pyramid layout depends on its tracker backend)."""
+    from meshflow_tpu_torch.motion.trackscale import planes_dev
     from meshflow_tpu_torch.online import OnlineState, online_prepare
 
     frame = torch.as_tensor(np.array(prev_frame, np.uint8), device=device)
-    _, planes = online_prepare(frame, config, frame.shape[0], frame.shape[1])
+    _, planes = online_prepare(planes_dev(frame, config), config, frame.shape[0],
+                               frame.shape[1])
     return OnlineState(
         prev_planes=planes,
         prev_kps=keypoints_from_numpy(positions, scores, valid, device=device),

@@ -1,13 +1,25 @@
 """What every kernel wrapper does around its kernel: the routing test, the
-checks of its CUDA tensors, and the call of its C entry point."""
+checks of its CUDA tensors, the call of its C entry point and the count
+of its launches."""
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from meshflow_tpu_torch.kernels import _build
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(wrapper) -> None:
+    """Add one to `wrapper.launches` where the wrapper launches its kernel;
+    under a lock, since batch workers launch from threads of their own."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -54,5 +66,10 @@ def stream_of(device: torch.device) -> ctypes.c_void_p:
 
 def launch(entry: str, device: torch.device, *args) -> None:
     """Call the library's C entry point `entry` with `args` converted by
-    `c_args`, then the current stream; raise if it returns a CUDA error."""
-    _build.check(getattr(_build.library(), entry)(*c_args(args), stream_of(device)), entry)
+    `c_args`, then `device`'s current stream; raise if it returns a CUDA
+    error.  The entry points run on the calling thread's current device
+    (they query it for their launch shape), so `device` is made current
+    around the call: a shard or a batch worker on another card than the
+    current one launches on its own."""
+    with torch.cuda.device(device):
+        _build.check(getattr(_build.library(), entry)(*c_args(args), stream_of(device)), entry)

@@ -93,7 +93,7 @@ def backward_map(
         f, frame_height, frame_width, rc, cc,
         *axis_divisor(frame_height, rc), *axis_divisor(frame_width, cc),
     )
-    backward_map.launches += 1
+    _launch.count(backward_map)
     return BackwardMap(map_x, map_y, covered)
 
 

@@ -22,3 +22,11 @@ def bgr_to_gray(bgr: torch.Tensor) -> torch.Tensor:
     r = bgr[..., 2].to(torch.int32)
     y = (b * _B2Y + g * _G2Y + r * _R2Y + (1 << (_SHIFT - 1))) >> _SHIFT
     return y.to(torch.uint8)
+
+
+def gray_of_bgr_color(bgr) -> int:
+    """The exact gray of one (B, G, R) uint8 triple: the border colour a
+    gray-plane warp uses, so that its border pixels equal the gray of the
+    BGR warp's border."""
+    b, g, r = (int(v) for v in bgr)
+    return (b * _B2Y + g * _G2Y + r * _R2Y + (1 << (_SHIFT - 1))) >> _SHIFT

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from meshflow_tpu_torch.kernels import _build
+from meshflow_tpu_torch.kernels import _build, _launch
 from meshflow_tpu_torch.kernels.lk import lk_level_plain
 from meshflow_tpu_torch.kernels.lk_cuda import launch_level
 
@@ -60,7 +60,7 @@ def lk_level_band(
         "meshflow_lk_band", args, rows, cols, shifted, max_iters, eps,
         min_eig_threshold, is_level0, int(patch),
     )
-    lk_level_band.launches += 1
+    _launch.count(lk_level_band)
     return out
 
 

@@ -108,7 +108,7 @@ def lk_level(
         "meshflow_lk_level", args, rows, cols, shifted, max_iters, eps,
         min_eig_threshold, is_level0,
     )
-    lk_level.launches += 1
+    _launch.count(lk_level)
     return out
 
 

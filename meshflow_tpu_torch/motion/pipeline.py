@@ -51,9 +51,11 @@ def detect_all_frames(
 
 
 def prepare_frames(frames_bgr: torch.Tensor, config: MeshFlowConfig):
-    """(F, H, W, 3) uint8 BGR -> (keypoints, gray8 (F, H, W))."""
+    """(F, H, W, 3) uint8 BGR or (F, H, W, 1) uint8 gray planes (the
+    track_planes="gray" route) -> (keypoints, gray8 (F, H, W)); detection
+    sees the same gray either way."""
     _, h, w = frames_bgr.shape[:3]
-    gray8 = bgr_to_gray(frames_bgr)
+    gray8 = frames_bgr[..., 0] if frames_bgr.shape[-1] == 1 else bgr_to_gray(frames_bgr)
     return detect_all_frames(gray8, config, h, w), gray8
 
 

@@ -18,7 +18,9 @@ The downscale is an exact integer box mean with cv2.resize(INTER_AREA)
 rounding: the device version reproduces cv2's tie rule per factor
 (half-up when d*d is odd, where ties cannot occur; half-up at d=2;
 half-even at even d >= 4), so host- and device-derived track planes agree
-bit for bit.  Frames are cropped to (th*d, tw*d) first.
+bit for bit.  Frames are cropped to (th*d, tw*d) first.  Under
+track_planes="gray" the trackers consume the exact cv2 gray of the
+downscaled frames, one plane (C=1).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from meshflow_tpu_torch.config import MeshFlowConfig
+from meshflow_tpu_torch.kernels.color import bgr_to_gray
 
 # Frames box-downscaled together: bounds the int32 block sums to ~1.6 GB
 # at 1080p.
@@ -89,12 +92,34 @@ def box_downscale_dev(frames: torch.Tensor, d: int) -> torch.Tensor:
     )
 
 
+def planes_dev(frames_bgr: torch.Tensor, config: MeshFlowConfig) -> torch.Tensor:
+    """(..., 3) uint8 BGR -> the planes the trackers consume at the frames'
+    own size: the frames themselves, or under track_planes="gray" their
+    exact cv2 gray as (..., 1)."""
+    if config.track_planes == "gray":
+        return bgr_to_gray(frames_bgr)[..., None]
+    return frames_bgr
+
+
 def to_track_planes_dev(frames_bgr: torch.Tensor, config: MeshFlowConfig) -> torch.Tensor:
-    """(F, H, W, 3) uint8 BGR -> downscaled (F, th, tw, 3) tracker planes."""
-    if config.track_planes != "bgr":
-        raise NotImplementedError("track_planes='gray' is not ported yet")
+    """(F, H, W, 3) uint8 BGR -> downscaled (F, th, tw, C) tracker planes:
+    the d x d box downscale first, then the gray (C=1) under
+    track_planes="gray", as cv2's gray of the host-downscaled frames."""
     d = config.resolve_track_downscale(frames_bgr.shape[1], frames_bgr.shape[2])
-    return box_downscale_dev(frames_bgr, d)
+    return planes_dev(box_downscale_dev(frames_bgr, d), config)
+
+
+def metric_rerender(config: MeshFlowConfig, frame_height: int, frame_width: int) -> bool:
+    """Whether the metric pass re-renders the track planes through the
+    output's maps and crop: gray planes at full size (d=1) with metrics
+    on, the JAX package's default metric source there.  Otherwise it
+    tracks the track planes of the cropped output (d > 1: its box
+    downscale, then gray)."""
+    return (
+        config.compute_metrics
+        and config.track_planes == "gray"
+        and config.resolve_track_downscale(frame_height, frame_width) == 1
+    )
 
 
 def scale_velocities(velocities: torch.Tensor, sx: float, sy: float) -> torch.Tensor:

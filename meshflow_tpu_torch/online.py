@@ -16,8 +16,11 @@ frame of algorithmic latency.  Per frame t:
 3. warp frame t by (p_t - c_t) (backward map: kernel B on the card) and
    apply the fixed reserved-margin crop.
 
-The JAX package prefers its native host renderer when one is built; the
-port has none and always takes the device-warp branch.
+Under track_planes="gray" steps 1 and 2 take the frame's exact cv2 gray
+(one plane, full size) and step 3 warps the BGR frame.  The JAX package
+prefers its native host renderer when one is built, and needs it for
+gray planes; the port has none and always takes the device-warp branch,
+the BGR frame on the device.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from meshflow_tpu_torch.kernels.pyramid import pyramid_shapes
 from meshflow_tpu_torch.motion.features import match_from_tracks
 from meshflow_tpu_torch.motion.pipeline import pack_tile_planes_u8, track_planes
 from meshflow_tpu_torch.motion.propagate import vertex_velocities
+from meshflow_tpu_torch.motion.trackscale import planes_dev
 from meshflow_tpu_torch.render.stabilize import crop_resize_frame, warp_frame
 from meshflow_tpu_torch.solver.jacobi import gaussian_band
 from meshflow_tpu_torch.solver.weights import adaptive_weights
@@ -57,21 +61,23 @@ class OnlineState:
 
 def online_prepare(frame: torch.Tensor, config: MeshFlowConfig, frame_height: int,
                    frame_width: int):
-    """Per-frame preparation: (H, W, 3) uint8 -> (keypoints, planes)."""
+    """Per-frame preparation: (H, W, 3) uint8 BGR or (H, W, 1) uint8 gray
+    planes -> (keypoints, planes)."""
     max_level = config.lk_max_level(frame_height, frame_width)
-    kps = detect_keypoints(bgr_to_gray(frame), config, frame_height, frame_width)
+    gray = frame[..., 0] if frame.shape[-1] == 1 else bgr_to_gray(frame)
+    kps = detect_keypoints(gray, config, frame_height, frame_width)
     planes, _ = pack_tile_planes_u8(frame[None], config, max_level)
     return kps, planes
 
 
 def initial_state(frame: torch.Tensor, config: MeshFlowConfig) -> OnlineState:
-    """The state after the first frame: zero windows, step 0."""
+    """The state after the first (H, W, 3) BGR frame: zero windows, step 0."""
     h, w = frame.shape[:2]
     zeros = torch.zeros(
         (config.temporal_smoothing_radius + 1, config.vertex_rows, config.vertex_cols, 2),
         dtype=torch.float32, device=frame.device,
     )
-    kps, planes = online_prepare(frame, config, h, w)
+    kps, planes = online_prepare(planes_dev(frame, config), config, h, w)
     return OnlineState(planes, kps, zeros, zeros.clone(), 0)
 
 
@@ -101,8 +107,8 @@ def online_motion_solve(
     adaptive_weights_definition: int = 0,
     crop_ratio: float = 0.8,
 ):
-    """Motion + causal solve for one frame: (state, frame t) ->
-    (new state, c_t, p_t).
+    """Motion + causal solve for one frame: (state, frame t's track
+    planes, (H, W, 3) BGR or (H, W, 1) gray) -> (new state, c_t, p_t).
 
     The stabilizing shift p_t - c_t is clamped per vertex to the reserved
     cropping margin: a shift of +-margin moves content by exactly the
@@ -165,12 +171,12 @@ def online_step(
     adaptive_weights_definition: int = 0,
     crop_ratio: float = 0.8,
 ):
-    """One streaming step: (state, frame t) -> (new state, stabilized
+    """One streaming step: (state, BGR frame t) -> (new state, stabilized
     frame (H, W, 3) uint8 on the frame's device)."""
     device = frame.device
     unstab_grid = grid.vertex_grid(config, frame_height, frame_width, device=device)
     new_state, c_t, p_t = online_motion_solve(
-        state, frame, key, config, frame_height, frame_width,
+        state, planes_dev(frame, config), key, config, frame_height, frame_width,
         adaptive_weights_definition, crop_ratio,
     )
     bmap = backward_map(
@@ -194,10 +200,6 @@ class OnlineMeshFlowStabilizer:
         device: str | torch.device | None = None,
     ):
         self.config = config or MeshFlowConfig()
-        if self.config.track_planes != "bgr":
-            raise NotImplementedError(
-                "track_planes='gray' needs a host renderer, which the port does not have"
-            )
         self.adaptive_weights_definition = adaptive_weights_definition
         self.crop_ratio = crop_ratio
         self.device = torch.device(device if device is not None else default_device())

@@ -11,8 +11,9 @@
    1 px, and the highest row-major cell wins.  Uncovered pixels map to the
    sentinel (W+1, H+1).  ``backward_map_plain`` is the plain version;
    ``kernels/bmap_cuda.backward_map`` routes a CUDA tensor to kernel B.
-3. The bilinear warp with the border colour, the per-frame crop edges,
-   and the crop+stretch back to full size (cv2.resize semantics).
+3. The bilinear warp with the border colour (its exact gray for gray
+   planes), the per-frame crop edges, and the crop+stretch back to full
+   size (cv2.resize semantics).
 
 Homography tables are read directly in float32; the JAX package's bf16
 Dekker split and uint32 BGR packing were TPU workarounds.
@@ -25,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from meshflow_tpu_torch.config import MeshFlowConfig
+from meshflow_tpu_torch.kernels.color import gray_of_bgr_color
 from meshflow_tpu_torch.kernels.homography import quad_to_quad_homography
 
 
@@ -312,6 +314,26 @@ def crop_resize_frame(
     return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
 
 
+def border_color(config: MeshFlowConfig, channels: int):
+    """The colour outside the warped image for frames of `channels` planes:
+    the config's BGR triple, or its exact gray for gray planes (C=1), so
+    that a gray warp's border equals the gray of the BGR warp's."""
+    bgr = config.color_outside_image_area_bgr
+    return [gray_of_bgr_color(bgr)] if channels == 1 else bgr
+
+
+def warp_block(frames: torch.Tensor, bmap: BackwardMap, config: MeshFlowConfig) -> torch.Tensor:
+    """Warp a block of frames (F, H, W, C) uint8 by its backward maps
+    (F, H, W) with the border colour of C planes."""
+    border = border_color(config, frames.shape[-1])
+    return torch.stack(
+        [
+            warp_frame(frames[i], BackwardMap(*(m[i] for m in bmap)), border)
+            for i in range(frames.shape[0])
+        ]
+    )
+
+
 def render_stabilized(
     frames: torch.Tensor,
     unstab_disp: torch.Tensor,
@@ -323,21 +345,36 @@ def render_stabilized(
 ):
     """Warp a block of frames and find its crop rectangle.
 
-    frames: (F, H, W, C) uint8; *_disp: (F, R+1, C+1, 2).  Returns
-    (stabilized (F, H, W, C) uint8, crop (4,) [left, top, right, bottom]).
-    The backward maps come from ``kernels/bmap_cuda.backward_map``: kernel
-    B for CUDA tensors, the plain version for CPU tensors.
+    frames: (F, H, W, C) uint8 (C=3 BGR or C=1 gray); *_disp: (F, R+1,
+    C+1, 2).  Returns (stabilized (F, H, W, C) uint8, crop (4,) [left, top,
+    right, bottom]).  The backward maps come from
+    ``kernels/bmap_cuda.backward_map``: kernel B for CUDA tensors, the
+    plain version for CPU tensors.
     """
-    border = config.color_outside_image_area_bgr
+    stabilized, _, crop = render_block(frames, None, unstab_disp, stab_disp, unstab_grid,
+                                       config, frame_height, frame_width)
+    return stabilized, crop
+
+
+def render_block(
+    frames: torch.Tensor,
+    track,
+    unstab_disp: torch.Tensor,
+    stab_disp: torch.Tensor,
+    unstab_grid: torch.Tensor,
+    config: MeshFlowConfig,
+    frame_height: int,
+    frame_width: int,
+):
+    """`render_stabilized` of a block, with its track planes `track` (F, H,
+    W, 1) warped through the same backward maps when given (the metric
+    pass's gray re-render).  Returns (stabilized frames, stabilized track
+    planes or None, crop (4,))."""
     bmap = stabilized_maps(unstab_disp, stab_disp, unstab_grid, config, frame_height,
                            frame_width)
-    stabilized = torch.stack(
-        [
-            warp_frame(frames[i], BackwardMap(*(m[i] for m in bmap)), border)
-            for i in range(frames.shape[0])
-        ]
-    )
-    return stabilized, block_crop(bmap, frame_height, frame_width)
+    stabilized_track = None if track is None else warp_block(track, bmap, config)
+    return (warp_block(frames, bmap, config), stabilized_track,
+            block_crop(bmap, frame_height, frame_width))
 
 
 def stabilized_maps(

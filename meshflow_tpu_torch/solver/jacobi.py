@@ -66,3 +66,61 @@ def jacobi_smooth(
         offdiag_x = -2.0 * lam * _band_matvec(x, band, omega)
         x = inv_d * (b - offdiag_x)
     return x
+
+
+def _band_matvec_halo(
+    x_local: torch.Tensor,
+    left: torch.Tensor | None,
+    right: torch.Tensor | None,
+    band: torch.Tensor,
+    omega: int,
+) -> torch.Tensor:
+    """_band_matvec of one shard of a frame-sharded state: `left` and
+    `right` are the neighbours' omega adjacent frames, None at the ends of
+    the sequence, where the unsharded stencil's zero padding stands.  The
+    2*omega+1 taps are added in _band_matvec's order, so the result equals
+    _band_matvec of the concatenated state bit for bit."""
+    block = x_local.shape[0]
+    pad = x_local.new_zeros((omega,) + x_local.shape[1:])
+    xp = torch.cat([pad if left is None else left, x_local, pad if right is None else right])
+    out = torch.zeros_like(x_local)
+    for j in range(2 * omega + 1):
+        out = out + band[2 * omega - j] * xp[j : j + block]
+    return out
+
+
+def jacobi_smooth_sharded(
+    b_locals, lambdas: torch.Tensor, omega: int, iterations: int
+) -> list:
+    """jacobi_smooth with the (F, V, 2) state sharded over the frame axis.
+
+    b_locals: the shards' (B, ...) blocks of the unstabilized
+    displacements in frame order, each on its shard's device (devices may
+    repeat); lambdas: the full (F,) adaptive weights.  Per sweep each shard
+    takes omega frames from each neighbour (the halo: a `.to` of the
+    neighbour's edge frames, the JAX package's ppermute) instead of the
+    whole state.  Needs B >= omega when there is more than one shard.
+    Returns the stabilized blocks, equal bit for bit to the blocks of
+    jacobi_smooth on the concatenated state."""
+    n = len(b_locals)
+    block = b_locals[0].shape[0]
+    if n > 1 and block < omega:
+        raise ValueError(f"halo solve needs shards of >= omega={omega} frames, got {block}")
+    inv_diag = 1.0 / on_diagonal(lambdas, omega)
+    extra = (1,) * (b_locals[0].dim() - 1)
+    bands, lams, inv_ds = [], [], []
+    for i, b in enumerate(b_locals):
+        sl = slice(i * block, (i + 1) * block)
+        bands.append(gaussian_band(omega, b.device))
+        lams.append(lambdas[sl].to(b.device).reshape((-1,) + extra))
+        inv_ds.append(inv_diag[sl].to(b.device).reshape((-1,) + extra))
+    xs = list(b_locals)
+    for _ in range(iterations):
+        new = []
+        for i, x in enumerate(xs):
+            left = xs[i - 1][-omega:].to(x.device) if i > 0 else None
+            right = xs[i + 1][:omega].to(x.device) if i < n - 1 else None
+            offdiag_x = -2.0 * lams[i] * _band_matvec_halo(x, left, right, bands[i], omega)
+            new.append(inv_ds[i] * (b_locals[i] - offdiag_x))
+        xs = new
+    return xs

@@ -24,8 +24,10 @@ pass 2 (host -> device -> host):  per CHUNK block, the frames come from
     pass 1's host cache (MESHFLOW_HOST_FRAME_CACHE_GB), else from a second
     decode; the block is warped on the device (kernel B again), cropped and
     stretched with the global crop, scored by the metric pass (none in
-    serving mode), and its cropped BGR goes back to the host and on to
-    the encoder.
+    serving mode; gray planes at d=1 warped through the block's maps, as
+    in-memory), and its cropped BGR goes back to the host and on to the
+    encoder.  Under track_planes="gray" the blocks stay BGR on the device
+    and the trackers take their gray planes, derived there.
 
 Every block of pass 2 is the in-memory route's block, so the output
 frames and the three metrics equal ``_stabilize_frames``' bit for bit.
@@ -72,7 +74,7 @@ from meshflow_tpu_torch.render.stabilize import (
     block_crop,
     crop_frames,
     intersect_crops,
-    render_stabilized,
+    render_block,
     stabilized_maps,
 )
 from meshflow_tpu_torch.solver.jacobi import jacobi_smooth
@@ -256,13 +258,14 @@ class _Acc:
 
     def __init__(self, timer, device: torch.device):
         self.timer = timer
+        self.device = device
         self.sync = timer.enabled and device.type == "cuda"
         self.buckets: dict = {}
         self._lock = threading.Lock()  # decode and encode threads add too
 
     def add(self, name: str, start: float, device_work: bool = True) -> None:
         if self.sync and device_work:
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - start
         with self._lock:
             self.buckets[name] = self.buckets.get(name, 0.0) + seconds
@@ -391,7 +394,7 @@ def _pass1(clip, info, config, key, device, chunk, acc) -> _Pass1:
         acc.add("host->device", t0)
 
         t0 = time.perf_counter()
-        track = trackscale.to_track_planes_dev(frames, config) if d_track > 1 else frames
+        track = trackscale.to_track_planes_dev(frames, config)
         kps, _ = prepare_frames(track, config)
         kps_parts.append(kps)
         if hbm_budget > 0 and kept < hbm_budget:
@@ -411,7 +414,7 @@ def _pass1(clip, info, config, key, device, chunk, acc) -> _Pass1:
         read += n
         if device.type == "cuda":
             inflight.append(torch.cuda.Event())
-            inflight[-1].record()
+            inflight[-1].record(torch.cuda.current_stream(device))
             if len(inflight) > max_inflight:
                 inflight.popleft().synchronize()
         acc.add("detect+motion", t0)
@@ -593,7 +596,6 @@ def _solve_and_render(clip, output, info, adaptive_weights_definition, config, k
     h, w = info.height, info.width
     num_frames = state.motion.displacements.shape[0]  # the frames pass 1 read
     th, tw = config.track_shape(h, w)
-    d_track = config.resolve_track_downscale(h, w)
     motion, keypoints = state.motion, state.keypoints
     unstab_grid = grid.vertex_grid(config, h, w, device=device)
 
@@ -617,6 +619,7 @@ def _solve_and_render(clip, output, info, adaptive_weights_definition, config, k
     pipe = _Pipeline(clip, output, chunk, num_frames, resident_end(state.frame_parts),
                      state.host_cache, acc)
     metric_key = prng.fold_in(key, 2)
+    rerender = trackscale.metric_rerender(config, h, w)
     ratios, distortions = [], []
     try:
         for start, n, host in pipe.blocks():
@@ -628,15 +631,21 @@ def _solve_and_render(clip, output, info, adaptive_weights_definition, config, k
                 frames = torch.from_numpy(host).to(device)
             acc.add("host->device", t0)
             t0 = time.perf_counter()
-            stab_c, _ = render_stabilized(frames, motion.displacements[sl], stab_disp[sl],
-                                          unstab_grid, config, h, w)
-            cropped = crop_frames(stab_c, crop, h, w)
-            del stab_c
+            # the block's maps go with render_block, before the metric
+            # pass's working set
+            track = trackscale.planes_dev(frames, config) if rerender else None
+            stab, stab_t, _ = render_block(frames, track, motion.displacements[sl],
+                                           stab_disp[sl], unstab_grid, config, h, w)
+            cropped = crop_frames(stab, crop, h, w)
+            if rerender:
+                cropped_t = crop_frames(stab_t, crop, h, w)
+            del stab, stab_t
             acc.add("warp+crop", t0)
             if config.compute_metrics:
                 t0 = time.perf_counter()
-                unstab_t, cropped_t = frames, cropped
-                if d_track > 1:
+                if rerender:
+                    unstab_t = track
+                else:
                     unstab_t = trackscale.to_track_planes_dev(frames, config)
                     cropped_t = trackscale.to_track_planes_dev(cropped, config)
                 r, d = cropping_and_distortion(

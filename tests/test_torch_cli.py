@@ -3,12 +3,14 @@ on a small cv2-written clip on the CPU (``--device cpu``).
 
 Checks the printout (finite metrics as one JSON line), the written video,
 serving mode through ``--no-metrics`` and through MESHFLOW_COMPUTE_METRICS
-when the flag is absent, and that ``--visualize`` still raises.
+when the flag is absent, and ``--visualize`` with ``--track-planes gray``:
+the run shows each input frame above its output (``cv2.imshow`` and
+``cv2.waitKey`` stubbed, Q pressed at the first frame) and writes the
+video.
 """
 
 import cv2
 import numpy as np
-import pytest
 import torch
 from test_torch_threads import two_torch_threads  # noqa: F401  (autouse)
 
@@ -60,5 +62,14 @@ def test_cli_smoke(tmp_path, capsys, monkeypatch):
         printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert np.isnan(printed["cropping_ratio"]) and np.isnan(printed["distortion_score"])
         assert np.isfinite(printed["stability_score"])
-    with pytest.raises(NotImplementedError):
-        cli.main([src, out, "--visualize", *tiny])
+    shown, waits = [], []
+    monkeypatch.setattr(cv2, "imshow", lambda name, img: shown.append((name, img)))
+    monkeypatch.setattr(cv2, "waitKey", lambda ms: waits.append(ms) or ord("q"))
+    out_gray = str(tmp_path / "out_gray.avi")
+    assert cli.main([src, out_gray, "--visualize", "--track-planes", "gray", *tiny]) == 0
+    assert waits == [int(1000 / 24.0)]
+    (name, img), = shown
+    assert name == "unstabilized and stabilized video" and img.shape == (360, 320, 3)
+    cap = cv2.VideoCapture(out_gray)
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == len(frames)
+    cap.release()

@@ -135,7 +135,12 @@ def test_port_imports_without_jax():
         "import meshflow_tpu_torch, torch\n"
         "from meshflow_tpu_torch import api, interop\n"
         "from meshflow_tpu_torch.kernels import lk_cuda, bmap_cuda, lk_band_cuda, lk_fetch\n"
-        "from meshflow_tpu_torch import online, cli\n"
+        "from meshflow_tpu_torch import online, cli, streaming, checkpoint\n"
+        "from meshflow_tpu_torch.parallel import batch, pipeline\n"
+        "from meshflow_tpu_torch.motion import features, pipeline as motion_pipeline\n"
+        "from meshflow_tpu_torch.render import stabilize\n"
+        "from meshflow_tpu_torch.solver import jacobi\n"
+        "from meshflow_tpu_torch.kernels import color, _launch\n"
         "from meshflow_tpu_torch.motion import trackscale\n"
         "from meshflow_tpu_torch.utils import profiling\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
@@ -181,7 +186,7 @@ def test_compute_metrics_env(monkeypatch):
     assert MeshFlowStabilizer(device="cpu").config.compute_metrics
 
 
-@pytest.mark.parametrize("env,kwargs,raises", [
+@pytest.mark.parametrize("env,kwargs,gray", [
     ({"MESHFLOW_TRACK_PLANES": "gray"}, {}, True),
     ({"MESHFLOW_TRACK_PLANES": "bgr"}, {}, False),
     ({"MESHFLOW_TRACK_PLANES": ""}, {}, False),
@@ -190,12 +195,11 @@ def test_compute_metrics_env(monkeypatch):
     ({"MESHFLOW_CHECKPOINT_DIR": ""}, {}, False),
 ], ids=["planes-gray", "planes-bgr", "planes-empty", "argument-wins", "checkpoint",
         "checkpoint-empty"])
-def test_track_planes_and_checkpoint_env(monkeypatch, tmp_path, env, kwargs, raises):
+def test_track_planes_and_checkpoint_env(monkeypatch, tmp_path, env, kwargs, gray):
     """The port reads MESHFLOW_TRACK_PLANES and MESHFLOW_CHECKPOINT_DIR with
     the JAX constructor's priority (argument > environment > config) and
-    keeps the same checkpoint directory; where JAX would then track gray
-    planes, which the port does not have yet, it raises instead of running
-    on the defaults."""
+    keeps the same checkpoint directory; where JAX then tracks gray planes,
+    the port builds the same gray config."""
     from meshflow_tpu.api import MeshFlowStabilizer as JaxStabilizer
 
     from meshflow_tpu_torch.api import MeshFlowStabilizer
@@ -205,11 +209,8 @@ def test_track_planes_and_checkpoint_env(monkeypatch, tmp_path, env, kwargs, rai
     for name, value in env.items():
         monkeypatch.setenv(name, str(tmp_path) if value == "TMP" else value)
     js = JaxStabilizer(**kwargs)
-    assert (js.config.track_planes != "bgr") is raises
-    if raises:
-        with pytest.raises(NotImplementedError):
-            MeshFlowStabilizer(device="cpu", **kwargs)
-    else:
-        ts = MeshFlowStabilizer(device="cpu", **kwargs)
-        assert ts.config == interop.config_from_fields(dataclasses.asdict(js.config))
-        assert ts.checkpoint_dir == js.checkpoint_dir
+    assert (js.config.track_planes != "bgr") is gray
+    ts = MeshFlowStabilizer(device="cpu", **kwargs)
+    assert ts.config == interop.config_from_fields(dataclasses.asdict(js.config))
+    assert (ts.config.track_planes == "gray") is gray
+    assert ts.checkpoint_dir == js.checkpoint_dir

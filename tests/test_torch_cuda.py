@@ -177,12 +177,49 @@ def test_launch_calls_the_entry_point_with_the_stream_last(monkeypatch):
 
     monkeypatch.setattr(_build, "library", Library)
     monkeypatch.setattr(_launch, "stream_of", lambda device: "stream")
+    monkeypatch.setattr(torch.cuda, "device", _CurrentDevice)
     t = torch.zeros(2)
-    _launch.launch("meshflow_lk_level", torch.device("cpu"), t, 5, 1e-4, True)
+    _launch.launch("meshflow_lk_level", torch.device("cuda", 0), t, 5, 1e-4, True)
     ((ptr, n, eps2, flag, stream),) = calls
     assert (ptr.value, n, eps2, flag, stream) == (t.data_ptr(), 5, 1e-4, 1, "stream")
     with pytest.raises(RuntimeError, match="cudaError_t 700"):
-        _launch.launch("failing", torch.device("cpu"))
+        _launch.launch("failing", torch.device("cuda", 0))
+
+
+class _CurrentDevice:
+    """A stand-in for ``torch.cuda.device`` that records the device made
+    current, so the launch rule is checked without a card."""
+
+    current = None
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        self.prev, _CurrentDevice.current = _CurrentDevice.current, self.device
+
+    def __exit__(self, *exc):
+        _CurrentDevice.current = self.prev
+
+
+def test_launch_makes_the_tensors_device_current(monkeypatch):
+    """The entry points run on the thread's current device: a launch for a
+    tensor on cuda:1 makes cuda:1 current around the C call, on cuda:1's
+    stream, and restores the device after it."""
+    seen = []
+
+    class Library:
+        def meshflow_bmap(self, *args):
+            seen.append((_CurrentDevice.current, args[-1]))
+            return 0
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(_launch, "stream_of", lambda device: f"stream of {device}")
+    monkeypatch.setattr(torch.cuda, "device", _CurrentDevice)
+    with _CurrentDevice(torch.device("cuda", 0)):
+        _launch.launch("meshflow_bmap", torch.device("cuda", 1), 3)
+        assert _CurrentDevice.current == torch.device("cuda", 0)
+    assert seen == [(torch.device("cuda", 1), "stream of cuda:1")]
 
 
 def _motion_block():
@@ -270,6 +307,41 @@ def test_lk_kernel_matches_plain_on_card():
     both = kst & pst
     assert torch.quantile(torch.linalg.norm(kp - pp, dim=-1)[both], 0.99).item() <= 0.02
     assert torch.equal(kp[~v], pts[:-1][~v]) and not kst[~v].any()
+
+
+@pytest.mark.cuda
+def test_lk_kernel_matches_plain_on_gray_planes_on_card():
+    """Kernel A at C=1, the gray-plane route's launch: the gates of the
+    BGR case."""
+    dev = _card()
+    planes, dims, pts, valid = _tiles(5, 3, 16, 1, 90, 160, [(0, 0), (3, -5), (-4, 2)], k=512)
+    planes = tuple(p.to(dev) for p in planes)
+    pts, valid = pts.to(dev), valid.to(dev)
+    before = lk_cuda.lk_level.launches
+    kp, kst = lk_cuda.lk_track_pairs(planes, dims, pts, valid)
+    pp, pst = lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=lk_cuda.lk_level_plain)
+    assert lk_cuda.lk_level.launches == before + 3
+    v = valid[:-1]
+    assert (kst == pst)[v].float().mean().item() >= 0.99
+    both = kst & pst
+    assert torch.quantile(torch.linalg.norm(kp - pp, dim=-1)[both], 0.99).item() <= 0.02
+    assert torch.equal(kp[~v], pts[:-1][~v]) and not kst[~v].any()
+
+
+@pytest.mark.cuda
+def test_band_kernel_matches_kernel_a_on_gray_planes_on_card(monkeypatch):
+    """Kernel C at C=1 on the 1080p d=3 gray route's tiles (16 of 90x160,
+    3 levels): bit-identical to kernel A."""
+    dev = _card()
+    planes, dims, pts, valid = _tiles(6, 3, 16, 1, 90, 160, [(0, 0), (5, -6), (-6, 4)], k=512)
+    planes = tuple(p.to(dev) for p in planes)
+    pts, valid = pts.to(dev), valid.to(dev)
+    monkeypatch.setenv("MESHFLOW_LK_FETCH", "band")
+    before = lk_band_cuda.lk_level_band.launches
+    cp, cst = lk_cuda.lk_track_pairs(planes, dims, pts, valid)
+    assert lk_band_cuda.lk_level_band.launches == before + 3
+    ap, ast = lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=lk_cuda.lk_level)
+    assert torch.equal(cp, ap) and torch.equal(cst, ast)
 
 
 @pytest.mark.cuda
@@ -480,6 +552,29 @@ def test_probe_g_kernel_matches_plain_at_every_size_on_card(b, pdl):
         assert torch.equal(g.band_row(plane, corners, pdl=pdl), g.band_row_plain(plane, corners))
     torch.cuda.synchronize()
     assert g.band_row.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_a_card_that_is_not_current_on_card():
+    """Kernels A and B on the last card while the first is current (a shard
+    or a batch worker on another card): each equals its plain version
+    there, and the current device is left as it was."""
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: one current, one to launch on")
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    planes, dims, pts, valid = _tiles(3, 3, 4, 3, 90, 160, [(0, 0), (2, -3), (-1, 4)])
+    planes = tuple(p.to(dev) for p in planes)
+    pts, valid = pts.to(dev), valid.to(dev)
+    config, stab, unstab = _bmap_inputs(dev, 16, 360, 640, 1.5, frames=4)
+    with torch.cuda.device(0):
+        kp, kst = lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=lk_cuda.lk_level)
+        kb = bmap_cuda.backward_map(stab, unstab, config, 360, 640)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev)
+    pp, pst = lk_cuda.lk_track_pairs(planes, dims, pts, valid, level_fn=lk_cuda.lk_level_plain)
+    _lk_gates(kp, kst, pp, pst, pts[:-1], valid[:-1])
+    _assert_bmap_equal(kb, bmap_cuda.backward_map_plain(stab, unstab, config, 360, 640), 360, 640)
 
 
 @pytest.mark.cuda

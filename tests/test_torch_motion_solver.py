@@ -153,3 +153,45 @@ def test_prng_keys_per_pair_match_jax():
         np.testing.assert_array_equal(
             ours[t].numpy(), np.asarray(jax.random.fold_in(key, t + 63))
         )
+
+
+def test_track_and_match_pair_match_jax(motion_pair):
+    """The per-pair entry points on one frame pair against JAX's XLA
+    tracker route (``features.track_pair`` / ``match_pair`` on tile
+    pyramids): LK status agreement >= 0.99 and p99 endpoint distance <=
+    0.02 px (test_torch_lk.py), equal match masks and ok, homographies
+    within 1e-3 relative to their largest entry."""
+    from meshflow_tpu.motion import features as jfeatures
+
+    from meshflow_tpu_torch.motion import features
+
+    frames = motion_pair[0][:2]
+    h, w = frames.shape[1:3]
+    jc = JaxConfig(max_features_per_subframe=128)
+    tc = MeshFlowConfig(max_features_per_subframe=128)
+    max_level = tc.lk_max_level(h, w)
+    jk, _ = jpipe.prepare_frames(jnp.asarray(frames), jc)
+    jk0 = jax.tree.map(lambda a: a[0], jk)
+    jlevels = [jpipe.tile_pyramid(jnp.asarray(f), jc, max_level) for f in frames]
+    tk0 = interop.keypoints_from_numpy(*(np.asarray(a) for a in jk0))
+    tlevels = [tpipe.pack_tile_planes_u8(torch.from_numpy(frames[t : t + 1]), tc, max_level)[0]
+               for t in range(2)]
+
+    jlate, jst = (np.asarray(a) for a in jfeatures.track_pair(jk0, *jlevels, jc, h, w))
+    late, st = features.track_pair(tk0, *tlevels, tc, h, w)
+    late, st = late.numpy(), st.numpy()
+    v = np.asarray(jk0.valid)
+    assert late.shape == jlate.shape and st.shape == jst.shape
+    assert (st == jst)[v].mean() >= 0.99
+    both = st & jst & v
+    assert both.mean() > 0.5
+    assert np.quantile(np.linalg.norm(late - jlate, axis=-1)[both], 0.99) <= 0.02
+
+    key = jax.random.fold_in(jax.random.PRNGKey(0), 1)
+    jm = jfeatures.match_pair(jk0, *jlevels, key, jc, h, w)
+    tm = features.match_pair(tk0, *tlevels, interop.key_from_jax(np.asarray(key)), tc, h, w)
+    assert bool(tm.ok) == bool(jm.ok)
+    np.testing.assert_array_equal(tm.inlier.numpy(), np.asarray(jm.inlier))
+    np.testing.assert_array_equal(tm.early.numpy(), np.asarray(jm.early))
+    jh = np.asarray(jm.homography)
+    assert np.abs(tm.homography.numpy() - jh).max() / np.abs(jh).max() < 1e-3

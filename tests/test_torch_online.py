@@ -142,7 +142,17 @@ def test_online_crop_rect_exact(w, h, ratio):
 
 
 def test_online_gray_planes_raise():
-    with pytest.raises(NotImplementedError):
-        online.OnlineMeshFlowStabilizer(
-            config=MeshFlowConfig(track_planes="gray"), device="cpu"
-        )
+    """Gray planes run (tracking on the frame's gray, the BGR frame warped:
+    tests/test_torch_gray.py holds them against JAX); as in the JAX
+    package, only a plane kind that does not exist raises."""
+    frames = _clip(np.random.default_rng(5), 2)
+    stab = online.OnlineMeshFlowStabilizer(
+        config=MeshFlowConfig(**FIELDS, track_planes="gray"), device="cpu"
+    )
+    np.testing.assert_array_equal(stab.process(frames[0]), frames[0])
+    assert stab._state.prev_planes[0].shape[2] == 1
+    out = stab.process(frames[1])
+    assert out.shape == frames[1].shape and out.dtype == np.uint8
+    for config in (MeshFlowConfig, JaxConfig):
+        with pytest.raises(ValueError, match="track_planes"):
+            config(track_planes="rgb")

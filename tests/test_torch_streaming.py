@@ -152,8 +152,8 @@ def test_threaded_pipeline_error_propagates(clip, tmp_path, monkeypatch):
 
 def test_stream_mode_routes_like_jax(clip, tmp_path, monkeypatch):
     """MESHFLOW_STREAM: auto and 1 stream, 0 takes the in-memory route;
-    1 with visualize raises JAX's RuntimeError (the port's constructor
-    still refuses visualize itself)."""
+    1 with visualize raises JAX's RuntimeError, and auto with visualize
+    takes the in-memory route and then the display loop, as JAX's does."""
     path, *_ = clip
     routes = []
     monkeypatch.setattr(streaming, "stabilize_streamed",
@@ -168,13 +168,14 @@ def test_stream_mode_routes_like_jax(clip, tmp_path, monkeypatch):
     monkeypatch.setenv("MESHFLOW_STREAM", "1")
     with pytest.raises(RuntimeError, match="MESHFLOW_STREAM=1 is incompatible with visualize"):
         JaxStabilizer(visualize=True).stabilize(path, str(tmp_path / "out.avi"), 0)
-    with pytest.raises(NotImplementedError):
-        MeshFlowStabilizer(visualize=True, device="cpu")
-    stab = _stabilizer()
-    stab.config = MeshFlowConfig(**SMALL, visualize=True)
+    stab = MeshFlowStabilizer(config=MeshFlowConfig(**SMALL, visualize=True), device="cpu")
+    assert MeshFlowStabilizer(visualize=True, device="cpu").config.visualize
     with pytest.raises(RuntimeError, match="MESHFLOW_STREAM=1 is incompatible with visualize"):
         stab.stabilize(path, str(tmp_path / "out.avi"), 0)
-    assert routes == ["stream", "stream", "memory"]
+    monkeypatch.setenv("MESHFLOW_STREAM", "auto")
+    monkeypatch.setattr(stab, "_display_loop", lambda *a: routes.append("display"))
+    assert stab.stabilize(path, str(tmp_path / "out.avi"), 0) == (1.0, 1.0, 0.5)
+    assert routes == ["stream", "stream", "memory", "memory", "display"]
 
 
 def test_streamed_matches_jax_streamed(clip, monkeypatch):

@@ -29,6 +29,7 @@ from meshflow_tpu.utils import grid as jgrid
 
 from meshflow_tpu_torch.api import MeshFlowStabilizer
 from meshflow_tpu_torch.config import MeshFlowConfig
+from meshflow_tpu_torch.kernels.color import bgr_to_gray
 from meshflow_tpu_torch.motion import pipeline as tpipe
 from meshflow_tpu_torch.motion import trackscale
 from meshflow_tpu_torch.solver.jacobi import jacobi_smooth
@@ -89,9 +90,18 @@ def test_scale_and_conjugate_match_jax():
 
 
 def test_to_track_planes_gray_raises():
-    frames = torch.zeros((1, 40, 64, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):
-        trackscale.to_track_planes_dev(frames, MeshFlowConfig(track_planes="gray"))
+    """Gray track planes at d=1 and d=2: the gray of the box-downscaled
+    frames, one plane (tests/test_torch_gray.py holds them against JAX);
+    only a plane kind that does not exist raises."""
+    frames = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 40, 64, 3),
+                                                                  dtype=np.uint8))
+    for d in (1, 2):
+        config = MeshFlowConfig(track_planes="gray", track_downscale=d)
+        got = trackscale.to_track_planes_dev(frames, config)
+        want = bgr_to_gray(trackscale.box_downscale_dev(frames, d))[..., None]
+        assert got.shape == (2, 40 // d, 64 // d, 1) and torch.equal(got, want)
+    with pytest.raises(ValueError, match="track_planes"):
+        MeshFlowConfig(track_planes="rgb")
 
 
 def _clip(num_frames, h, w, pan, seed=0):
