@@ -78,6 +78,32 @@ From the root of a checkout, on a machine with one CUDA card:
 15c. batch: ``parallel.stabilize_batch`` on two 640x360 x 120-frame clips
    (array-backed in, capturing writer out) on one and two worker threads
    of the card, each job equal to a solo ``stabilize``, launches and walls;
+15d. geometry kernels: kernel A against its plain version at the 4K
+   motion launch (63 pairs of 16 tiles of 108x192x3, 3 levels: a 3840x2160
+   clip tracks at 768x432), kernel C bit for bit against A there; kernel B
+   equal to its plain version on every frame of a 64-frame 4K block and of
+   a 64-frame 1080p block on the 64x64 mesh (its global-table route),
+   device ms beside one plain call over the block and the bound;
+15e. 4K: a 3840x2160 x 300-frame clip (d=5, kernel A) in memory, cold
+   (peak device memory), warm and a pass with its stages timed, launches
+   against the reckoned counts (A 30, B 5); serving mode on the same
+   frames (frames torch.equal, area scores NaN, A 15); streamed with the
+   default budgets (a resident prefix, the rest of pass 2 from the host
+   cache) and with MESHFLOW_HOST_FRAME_CACHE_GB=0 (the rest decoded from
+   the clip again), each torch.equal to in memory with equal metrics, with
+   the branch that served each pass-2 block, peak device memory and the
+   process's peak RSS (about 35 GB of host RAM);
+15f. 1080p/64: 1920x1080 x 300 frames on the 64x64 mesh (d=3, kernel A) in
+   memory and streamed, torch.equal; its motion stage beside the 16x16
+   mesh's;
+15g. 720p: 1280x720 x 300 frames (d=2) in memory and streamed, torch.equal;
+15h. serving at 640x360: compute_metrics=False against the main path's
+   cold pass, frames torch.equal, area scores NaN, kernel A 15 launches;
+15i. sharded 4K: ``parallel.stabilize_sharded`` on 3840x2160 x 16 frames
+   over 1 and 2 logical shards of the card within the shard-count gates of
+   step 15b; the halo Jacobi alone over 3600 frames of seeded displacement
+   fields of the default mesh on 4 logical shards, torch.equal to the
+   replicated solve;
 16. the probes: ``python -m meshflow_tpu_torch.probes`` with the six
    probe kernels' launch counts set to 0 before it (probe F also on
    general float32 values), then each probe kernel against its plain
@@ -106,7 +132,12 @@ the streamed 1080p run); `launches_gray`, `launches_gray_online`,
 `launches_gray_1080p`, `launches_sharded` (4 shards) and `launches_batch`
 (2 workers) in those paths' runs; `*_gray` are A's and C's numbers at C=1
 (step 5a), `*_sharded` A's and B's at a 4-shard block's launches and
-`*_sharded_1_shard` at the 1-shard block's (step 15b).  Prints one JSON
+`*_sharded_1_shard` at the 1-shard block's (step 15b); `*_4k` A's, C's and
+B's numbers at the 4K launches and B's `*_1080p_mesh64_block` at the
+64-frame block on the 64x64 mesh (step 15d); `launches_4k`,
+`launches_4k_streamed`, `launches_4k_serving`, `launches_serving`
+(640x360), `launches_mesh64`, `launches_mesh64_streamed`, `launches_720p`
+and `launches_sharded_4k` (2 shards) in those runs.  Prints one JSON
 line of the kernels' launches, errors, times and bounds, then the last
 line ``{"ok": true, "device": {...}}``.  Any failed check or error exits
 non-zero before that line.  Without a CUDA device, or without the
@@ -162,17 +193,28 @@ def device_ms(fn, launches: int = 5, batches: int = 5) -> float:
     return event_ms(fn, launches=launches, batches=batches)[0]
 
 
-class fetch_route:
-    """MESHFLOW_LK_FETCH set to `route` inside the block only."""
+class env_set:
+    """Environment variables set to `values` inside the block only."""
 
-    def __init__(self, route):
-        self.route = route
+    def __init__(self, **values):
+        self.values, self.saved = values, {}
 
     def __enter__(self):
-        os.environ["MESHFLOW_LK_FETCH"] = self.route
+        for name, value in self.values.items():
+            self.saved[name] = os.environ.get(name)
+            os.environ[name] = value
 
     def __exit__(self, *exc):
-        os.environ.pop("MESHFLOW_LK_FETCH", None)
+        for name, value in self.saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def fetch_route(route):
+    """MESHFLOW_LK_FETCH set to `route` inside the block only."""
+    return env_set(MESHFLOW_LK_FETCH=route)
 
 
 def reset_launches():
@@ -609,10 +651,14 @@ def bmap_bound(config, stab, unstab, work):
     """(bound_ms, bound_by, bound_ms if every pixel took every step and all
     9 candidates) of one backward_map call, from the work its data needs
     (``backward_map_plain(..., return_work=True)``)."""
-    pixels = work["lookups"].numel()
+    return bmap_bound_of(config, stab, unstab, {k: int(v.sum()) for k, v in work.items()},
+                         work["lookups"].numel())
+
+
+def bmap_bound_of(config, stab, unstab, count, pixels):
+    """`bmap_bound` from the work's totals `count` over `pixels` pixels."""
     frames = stab.shape[0] if stab.dim() == 4 else 1
     cells = config.mesh_row_count * config.mesh_col_count
-    count = {k: int(v.sum()) for k, v in work.items()}
     ops = (BMAP_LOOKUP_OPS * count["lookups"] + BMAP_HOMOGRAPHY_OPS * count["homographies"]
            + BMAP_BBOX_OPS * count["candidates"] + BMAP_CELL_OPS * frames * cells)
     nbytes = (stab.numel() + unstab.numel()) * 4 + 9 * pixels
@@ -747,7 +793,8 @@ def synthetic_clip(num_frames: int, h: int, w: int, pan: int):
 
 
 def phase_main_path(device, num_frames=300, h=360, w=640, pan=120):
-    """The port's main path on a 300-frame 640x360 clip, cold then warm."""
+    """The port's main path on a 300-frame 640x360 clip, cold then warm;
+    returns (launches, cold s, warm s, the cold pass's output)."""
     import math
 
     import torch
@@ -804,7 +851,7 @@ def phase_main_path(device, num_frames=300, h=360, w=640, pan=120):
     check(0.0 <= stability <= 1.0, f"stability {stability} outside [0, 1]")
     # the camera pans right, so content (and the vertex displacement) moves left
     check(mean_dx < -pan / 2, f"mean displacement {mean_dx} does not follow the pan")
-    return launches, cold_s, warm_s
+    return launches, cold_s, warm_s, (cropped, ratio, distortion, stability)
 
 
 def check_output(name, stab, out, num_frames, h, w, pan, device):
@@ -880,7 +927,7 @@ def phase_1080p(device, num_frames=300, h=1080, w=1920, pan=360):
     check(launches["lk_level"] == 0, "kernel A ran under MESHFLOW_LK_FETCH=band")
     check(launches["backward_map"] == blocks[1], "kernel B launch count (1080p)")
     check(torch.equal(out[0], out2[0]), "1080p warm pass output differs from cold pass")
-    return launches, frames[:64], warm_s
+    return launches, frames[:64], warm_s, stages
 
 
 def phase_1080p_control(device, frames, pan):
@@ -1000,16 +1047,17 @@ def phase_native_io():
     return ok
 
 
-def stream_launch_counts(config, h, w, num_frames, chunk):
+def stream_launch_counts(config, h, w, num_frames, chunk, maps_a_block=2):
     """(LK launches, backward-map calls) of a streamed run: pass 1's
     windows and pass 2's metric blocks at the LK's levels, and two maps a
-    block (the crop scan, then pass 2)."""
+    block (the crop scan, then pass 2); with maps_a_block=1 those of the
+    in-memory route (motion and metric blocks, one map a render block)."""
     import math
 
     levels = config.lk_max_level(*config.track_shape(h, w)) + 1
     blocks = math.ceil((num_frames - 1) / (chunk - 1)), math.ceil(num_frames / chunk)
     lk = levels * (blocks[0] + (blocks[1] if config.compute_metrics else 0))
-    return lk, 2 * blocks[1]
+    return lk, maps_a_block * blocks[1]
 
 
 def run_streamed(stab, clip, device, variant=0, timer=None, checkpoint_dir=None):
@@ -1045,19 +1093,34 @@ def in_memory(stab, frames_np, device, variant=0):
     return out[0].cpu(), tuple(float(x) for x in out[1:]), launches
 
 
+class peak_memory:
+    """Peak device memory allocated inside the block above what was
+    allocated at its start (``bytes`` and ``gib`` after the block)."""
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        self.base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        self.bytes = torch.cuda.max_memory_allocated() - self.base
+        self.gib = self.bytes / (1 << 30)
+
+
 def peak_in_memory(stab, frames_np, device):
     """The in-memory route on host frames (``in_memory``) and its peak
     device memory above what was held before, as ``phase_memory`` takes
     it: (cropped frames on the host, metrics, launches, peak bytes)."""
-    import torch
-
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    out = in_memory(stab, frames_np, device)
-    torch.cuda.synchronize()
-    return out + (torch.cuda.max_memory_allocated() - base,)
+    with peak_memory() as peak:
+        out = in_memory(stab, frames_np, device)
+    return out + (peak.bytes,)
 
 
 def check_streamed(name, got, ref):
@@ -1416,6 +1479,19 @@ def phase_sharded_kernels(device):
     return out
 
 
+def shard_count_gates(name, one, many):
+    """The JAX package's shard-count gates on two runs (frames, crop,
+    metrics, ...) of ``stabilize_sharded``: crop equal, metrics within 1e-3
+    relative, frames <= 1 LSB apart on > 99.9% of pixels.  Returns (metric
+    rel diffs, share of pixels within 1 LSB)."""
+    check(one[1] == many[1], f"{name}: crops {one[1]} (1 shard) and {many[1]} differ")
+    rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(many[2], one[2])]
+    check(max(rel) <= 1e-3, f"{name}: metrics off the 1-shard run by {rel}")
+    near = ((many[0].int() - one[0].int()).abs() <= 1).float().mean().item()
+    check(near > 0.999, f"{name}: frames within 1 LSB on {near} of pixels")
+    return rel, near
+
+
 def phase_sharded(device, num_frames=300, h=360, w=640, pan=120):
     """``parallel.stabilize_sharded`` on the 640x360 x 300 clip, its shards
     over ["cuda:0"] and ["cuda:0"] * 4 (blocks of 75 >= omega, so the halo
@@ -1461,11 +1537,7 @@ def phase_sharded(device, num_frames=300, h=360, w=640, pan=120):
         print(f"sharded {name}: {num_frames} frames {w}x{h}: {wall:.3f} s; crop "
               f"{runs[name][1]}; metrics {metrics}; launches {launches}")
     one, four = runs["1 shard"], runs["4 shards"]
-    check(one[1] == four[1], f"sharded: crops {one[1]} (1 shard) and {four[1]} (4) differ")
-    rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(four[2], one[2])]
-    check(max(rel) <= 1e-3, f"sharded: 4-shard metrics off the 1-shard run by {rel}")
-    near = ((four[0].int() - one[0].int()).abs() <= 1).float().mean().item()
-    check(near > 0.999, f"sharded: frames within 1 LSB on {near} of pixels")
+    rel, near = shard_count_gates("sharded", one, four)
     rep = runs["4 shards replicated"]
     check(torch.equal(four[0], rep[0]) and four[1:3] == rep[1:3],
           "sharded: halo solve differs from the replicated one")
@@ -1524,6 +1596,411 @@ def phase_batch(device, num_frames=120, h=360, w=640):
               f"launches {launches}")
         out[workers] = {"seconds": wall, "launches": launches}
     return out
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's other clip geometries: 4K (d=5), 1080p on the 64x64
+# mesh, 720p (d=2), serving mode, and the sharded path at 4K.
+
+
+def peak_rss_gib() -> float:
+    """The process's peak resident set so far (ru_maxrss), GiB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
+
+
+def host_ram_gib() -> float:
+    return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / (1 << 30)
+
+
+
+
+class pass2_sources:
+    """Records where each block of the stream's pass 2 took its frames:
+    (start, frames, "resident" | "host cache" | "decode"), and the resident
+    prefix's length (``resident``)."""
+
+    def __enter__(self):
+        from meshflow_tpu_torch import streaming
+
+        self.blocks, self.resident = [], 0
+        self.original = original = streaming._Pipeline.host_frames
+
+        def host_frames(pipe, start, n):
+            self.resident = pipe.res_end
+            if start + n <= pipe.res_end:
+                source = "resident"
+            else:
+                source = "host cache" if pipe.host_cache is not None else "decode"
+            self.blocks.append((start, n, source))
+            return original(pipe, start, n)
+
+        streaming._Pipeline.host_frames = host_frames
+        return self
+
+    def __exit__(self, *exc):
+        from meshflow_tpu_torch import streaming
+
+        streaming._Pipeline.host_frames = self.original
+
+    def sources(self):
+        return {source for _, _, source in self.blocks}
+
+    def summary(self) -> str:
+        return ", ".join(f"{s}-{s + n - 1} {source}" for s, n, source in sorted(self.blocks))
+
+
+# Kernel B at the new geometries' render launches (a 64-frame block): 4K
+# on the 16x16 mesh (vertex noise scaled with the width from the main
+# case's 1.5 px) and 1080p on the 64x64 mesh.
+GEOMETRY_BMAP_CASES = {
+    "4K": (3840, 2160, 16, 9.0, 64, False),
+    "1080p/64 block": (1920, 1080, 64, 3.0, 64, False),
+}
+# Frames of a block the plain backward map takes at a time
+BMAP_SLAB = 16
+
+
+def phase_geometry_kernels(device, bmap_cases=GEOMETRY_BMAP_CASES, size=(2160, 3840)):
+    """Kernels A, C and B at the launch shapes of the new geometries: A
+    against its plain version at the 4K motion launch (63 pairs of 16
+    tiles of 108x192x3, 3 levels: d=5 tracks at 768x432) with A's gates,
+    its device ms beside the plain version's and the bound; C at the same
+    launch bit for bit against A; B at a 64-frame 4K block and a 64-frame
+    1080p block on the 64x64 mesh (its global-table route), map_x, map_y,
+    covered and crop edges equal to the plain version on every frame (the
+    plain version BMAP_SLAB frames at a time), device ms of the whole
+    block beside one plain call over it and the bound from the work its
+    data needs."""
+    import torch
+
+    from meshflow_tpu_torch.config import MeshFlowConfig
+    from meshflow_tpu_torch.kernels import bmap_cuda, lk_cuda
+    from meshflow_tpu_torch.render.stabilize import crop_edges
+
+    config = MeshFlowConfig()
+    th, tw = config.track_shape(*size)
+    sub_h, sub_w = config.subframe_shape(th, tw)
+    case = LkCase(device, "4K motion", 63, th=sub_h, tw=sub_w,
+                  max_level=config.lk_max_level(th, tw), seed=SEED + 32)
+    out = {}
+    out["A"], max_err = kernel_a_row("kernel A 4K motion", case, 1)
+    out["A"]["max_abs_err"] = max_err
+
+    def band():
+        with fetch_route("band"):
+            return case.track()
+
+    cp, cst = band()
+    ap, ast = case.track(lk_cuda.lk_level)
+    check(torch.equal(cp, ap) and torch.equal(cst, ast),
+          "kernel C differs from kernel A at the 4K motion launch")
+    ms = device_ms(band) / case.levels
+    out["C"] = {k: out["A"][k] for k in ("plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    out["C"]["ms"] = ms
+    print(f"kernel C 4K motion per launch ({case.shape}): corners and status bit-identical to "
+          f"kernel A; kernel C {ms:.4f} ms, kernel A {out['A']['ms']:.4f} ms")
+    del cp, cst, ap, ast
+
+    for name in bmap_cases:
+        config, stab, unstab, bh, bw = bmap_inputs(device, name, bmap_cases)
+        kb = bmap_cuda.backward_map(stab, unstab, config, bh, bw)
+        edges = crop_edges(kb, bh, bw)
+        count, err = {}, 0.0
+        for s in range(0, stab.shape[0], BMAP_SLAB):
+            sl = slice(s, s + BMAP_SLAB)
+            pb, work = bmap_cuda.backward_map_plain(stab[sl], unstab, config, bh, bw,
+                                                    return_work=True)
+            equal = [bool(torch.equal(k[sl], p)) for k, p in zip(kb, pb)]
+            edges_equal = bool(torch.equal(edges[sl], crop_edges(pb, bh, bw)))
+            check(all(equal) and edges_equal,
+                  f"kernel B differs from the plain version ({name}, frames {s}..): maps and "
+                  f"coverage equal {equal}, crop edges equal {edges_equal}")
+            cov = pb.covered
+            err = max([err] + [(k[sl] - p)[cov].abs().max().item()
+                               for k, p in zip(kb[:2], pb[:2]) if cov.any()])
+            for k, v in work.items():
+                count[k] = count.get(k, 0) + int(v.sum())
+            del pb, work
+        pixels = kb.covered.numel()
+        del kb, edges
+        bound_ms, bound_by, _ = bmap_bound_of(config, stab, unstab, count, pixels)
+        ms = device_ms(lambda: bmap_cuda.backward_map(stab, unstab, config, bh, bw))
+        torch.cuda.synchronize()
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        bmap_cuda.backward_map_plain(stab, unstab, config, bh, bw)
+        end.record()
+        end.synchronize()
+        plain_ms = begin.elapsed_time(end)
+        print(f"kernel B {name} ({stab.shape[0]} frames {bw}x{bh}, mesh "
+              f"{config.mesh_row_count}): map_x, map_y, covered and crop edges equal to the "
+              f"plain version on every frame; a pixel needs "
+              + ", ".join(f"{v / pixels:.4f} {k}" for k, v in count.items())
+              + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one call), bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        out[f"B {name}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "max_abs_err": err}
+        del stab, unstab
+    return out
+
+
+def in_memory_passes(name, device, frames_np, config, pan):
+    """``_stabilize_frames`` on `frames_np` with `config` (kernel A, the
+    default route): a cold pass with its peak device memory above the
+    start (the clip's upload included), a warm pass equal to it, a third
+    pass with its stages timed; the cold pass's launches against the
+    reckoned counts and the output checks.  Returns a dict with the
+    stabilizer, the frames and the cold pass's output on the device."""
+    import torch
+
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+    from meshflow_tpu_torch.utils.profiling import StageTimer
+
+    num_frames, h, w = frames_np.shape[:3]
+    stab = MeshFlowStabilizer(config=config, device=device)
+    with peak_memory() as peak:
+        frames = torch.from_numpy(frames_np).to(device)
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = stab._stabilize_frames(frames, 0)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - start
+    launches = read_launches()
+    start = time.perf_counter()
+    warm = stab._stabilize_frames(frames, 0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - start
+    check(torch.equal(out[0], warm[0]), f"{name}: warm pass output differs from cold pass")
+    del warm
+    stab._stabilize_frames(frames, 0, StageTimer(enabled=True, device=device))
+    stages = {stage: round(sec, 4) for stage, sec in stab.last_timer.stages}
+    crop, metrics, mean_dx = check_output(name, stab, out, num_frames, h, w, pan, device)
+    lk, bmap = stream_launch_counts(config, h, w, num_frames, stab.CHUNK, maps_a_block=1)
+    check(launches == {"lk_level": lk, "lk_band": 0, "backward_map": bmap},
+          f"{name}: launches {launches}, expected kernel A {lk}, kernel B {bmap}")
+    th, tw = config.track_shape(h, w)
+    print(f"{name}: {num_frames} frames {w}x{h}, mesh {config.mesh_row_count}x"
+          f"{config.mesh_col_count}, d={config.resolve_track_downscale(h, w)} (tracking "
+          f"{tw}x{th}): cold {cold_s:.3f} s, warm {warm_s:.3f} s ({num_frames / warm_s:.2f} fps); "
+          f"peak device memory {peak.gib:.3f} GiB; launches {launches} (reckoned: kernel A "
+          f"{lk}, kernel B {bmap}); crop {crop}; cropping ratio {metrics[0]:.6f}, distortion "
+          f"{metrics[1]:.6f}, stability {metrics[2]:.6f}; last-frame mean x displacement "
+          f"{mean_dx:.3f} px; third pass stages (s) {stages}")
+    return {"stab": stab, "frames": frames, "out": out, "cold_s": cold_s, "warm_s": warm_s,
+            "stages": stages, "peak_gib": peak.gib, "launches": launches, "crop": crop,
+            "metrics": metrics}
+
+
+def streamed_against(name, run, frames_np, device, **env):
+    """``stabilize_streamed`` of `frames_np` (an array clip into a capturing
+    writer) under the environment `env`, against the in-memory `run`
+    (``in_memory_passes``, its output on the host as run["ref"]): frames
+    torch.equal, metrics equal, launches as reckoned; which branch served
+    each block of pass 2, the peak device memory and the process's peak
+    RSS."""
+    from meshflow_tpu_torch import streaming
+
+    stab = run["stab"]
+    num_frames, h, w = frames_np.shape[:3]
+    with env_set(**env), pass2_sources() as sources, peak_memory() as peak:
+        got = run_streamed(stab, streaming.ArrayClip(frames_np), device)
+    check_streamed(name, got, run["ref"])
+    lk, bmap = stream_launch_counts(stab.config, h, w, num_frames, stab.CHUNK)
+    check(got[3] == {"lk_level": lk, "lk_band": 0, "backward_map": bmap},
+          f"{name}: launches {got[3]}, expected kernel A {lk}, kernel B {bmap}")
+    rss = peak_rss_gib()
+    budgets = " ".join(f"{k}={v}" for k, v in env.items()) or "default budgets"
+    print(f"{name}: {num_frames} frames {w}x{h}, {budgets}: frames and metrics "
+          f"equal to _stabilize_frames; {got[2]:.3f} s; launches {got[3]}; resident prefix "
+          f"{sources.resident} frames; pass 2 blocks: {sources.summary()}; peak device memory "
+          f"{peak.gib:.3f} GiB; process peak RSS {rss:.3f} GiB")
+    return {"seconds": got[2], "launches": got[3], "resident": sources.resident,
+            "sources": sorted(sources.sources()), "peak_gib": peak.gib, "peak_rss_gib": rss}
+
+
+def serving_against(name, device, frames, config, ref, ref_walls):
+    """Serving mode (compute_metrics=False) in memory on the device frames
+    `frames`, twice, against the metrics-on output `ref` (cropped,
+    ratio, distortion, stability) of the same config: frames torch.equal
+    (the JAX CLI promises bit-identical output), the two area scores NaN,
+    stability equal, kernel A launched for the motion blocks only; the
+    walls beside the metrics-on walls `ref_walls` (cold, warm)."""
+    import math
+
+    import torch
+
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+
+    num_frames, h, w = frames.shape[:3]
+    stab = MeshFlowStabilizer(config=config, compute_metrics=False, device=device)
+    walls = []
+    for _ in range(2):
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = stab._stabilize_frames(frames, 0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+        launches = read_launches()
+        check(torch.equal(out[0], ref[0]), f"{name} serving: frames differ from metrics-on")
+        scores = tuple(float(x) for x in out[1:])
+        del out
+    check(math.isnan(scores[0]) and math.isnan(scores[1]),
+          f"{name} serving: area scores {scores[:2]} are not NaN")
+    check(scores[2] == float(ref[3]), f"{name} serving: stability {scores[2]} != {ref[3]}")
+    lk, bmap = stream_launch_counts(stab.config, h, w, num_frames, stab.CHUNK, maps_a_block=1)
+    check(launches == {"lk_level": lk, "lk_band": 0, "backward_map": bmap},
+          f"{name} serving: launches {launches}, expected kernel A {lk}, kernel B {bmap}")
+    print(f"{name} serving (compute_metrics=False): {num_frames} frames {w}x{h}: first "
+          f"{walls[0]:.3f} s, second {walls[1]:.3f} s beside metrics-on cold {ref_walls[0]:.3f} "
+          f"s, warm {ref_walls[1]:.3f} s; frames torch.equal to metrics-on, area scores NaN, "
+          f"stability equal; launches {launches}")
+    return {"walls": walls, "launches": launches}
+
+
+def phase_4k(device, num_frames=300, h=2160, w=3840, pan=720):
+    """3840x2160 x 300 frames at the automatic track geometry (d=5,
+    tracking at 768x432), kernel A: in memory (``in_memory_passes``), then
+    serving mode on the same frames against it, then streamed with the
+    default budgets (a resident prefix on the card, the rest of pass 2
+    from the host cache) and with MESHFLOW_HOST_FRAME_CACHE_GB=0 (the rest
+    decoded from the clip again), both equal to in memory."""
+    from meshflow_tpu_torch.config import MeshFlowConfig
+
+    config = MeshFlowConfig()
+    frames_np = synthetic_clip(num_frames, h, w, pan=pan)
+    print(f"4K: host RAM {host_ram_gib():.1f} GiB; the clip {frames_np.nbytes / 1e9:.2f} GB; "
+          f"process peak RSS {peak_rss_gib():.3f} GiB")
+    run = in_memory_passes("4K", device, frames_np, config, pan)
+    out = run["out"]
+    serving = serving_against("4K", device, run["frames"], config, out,
+                              (run["cold_s"], run["warm_s"]))
+    run["ref"] = (out[0].cpu(), run["metrics"])
+    del run["frames"], run["out"], out
+    streamed = {
+        "default": streamed_against("4K streamed", run, frames_np, device),
+        "no host cache": streamed_against("4K streamed", run, frames_np, device,
+                                          MESHFLOW_HOST_FRAME_CACHE_GB="0"),
+    }
+    check(streamed["default"]["sources"] == ["host cache", "resident"],
+          f"4K streamed: pass 2 took {streamed['default']['sources']}, not the resident "
+          "prefix and the host cache")
+    check(streamed["no host cache"]["sources"] == ["decode", "resident"],
+          f"4K streamed without the host cache: pass 2 took "
+          f"{streamed['no host cache']['sources']}, not the resident prefix and a decode")
+    del run["stab"], run["ref"]
+    return dict(run, serving=serving, streamed=streamed)
+
+
+def phase_geometry(device, name, config, num_frames, h, w, pan):
+    """A clip of another geometry in memory (``in_memory_passes``) and
+    streamed with the default budgets, torch.equal to it."""
+    frames_np = synthetic_clip(num_frames, h, w, pan=pan)
+    run = in_memory_passes(name, device, frames_np, config, pan)
+    run["ref"] = (run["out"][0].cpu(), run["metrics"])
+    del run["frames"], run["out"]
+    run["streamed"] = streamed_against(f"{name} streamed", run, frames_np, device)
+    del run["stab"], run["ref"]
+    return run
+
+
+def phase_mesh64(device, stages_16, num_frames=300, h=1080, w=1920, pan=360):
+    """1080p x 300 on the 64x64 mesh (d=3, kernel A), in memory and
+    streamed; its motion stage beside the 16x16 mesh's (`stages_16`, the
+    1080p phase's, kernel C)."""
+    from meshflow_tpu_torch.config import MeshFlowConfig
+
+    config = MeshFlowConfig(mesh_row_count=64, mesh_col_count=64)
+    run = phase_geometry(device, "1080p/64", config, num_frames, h, w, pan)
+    print(f"1080p/64: motion stage {run['stages']['motion']:.4f} s beside the 16x16 mesh's "
+          f"{stages_16['motion']:.4f} s (1080p phase, kernel C); metrics "
+          f"{run['stages']['metrics']:.4f} s beside {stages_16['metrics']:.4f} s")
+    return run
+
+
+def phase_serving(device, main, main_walls, num_frames=300, h=360, w=640, pan=120):
+    """Serving mode at 640x360 x 300 against the main path's cold pass
+    `main` (``serving_against``)."""
+    import torch
+
+    from meshflow_tpu_torch.config import MeshFlowConfig
+
+    frames = torch.from_numpy(synthetic_clip(num_frames, h, w, pan=pan)).to(device)
+    return serving_against("640x360", device, frames, MeshFlowConfig(), main, main_walls)
+
+
+def phase_sharded_4k(device, num_frames=16, h=2160, w=3840, pan=36, solve_frames=3600):
+    """The sharded path at the geometry of the JAX package's 4K smoke:
+    ``stabilize_sharded`` on 3840x2160 x 16 frames over ["cuda:0"] and
+    ["cuda:0"] * 2 (shards of 8 < omega take the replicated solve; no
+    track geometry, as in JAX) within the shard-count gates; then the halo
+    Jacobi alone over 3600 frames of seeded displacement fields of the
+    default mesh on 4 logical shards, torch.equal to the replicated
+    ``jacobi_smooth``."""
+    import numpy as np
+    import torch
+
+    from meshflow_tpu_torch.config import MeshFlowConfig
+    from meshflow_tpu_torch.parallel.pipeline import stabilize_sharded
+    from meshflow_tpu_torch.solver.jacobi import jacobi_smooth, jacobi_smooth_sharded
+    from meshflow_tpu_torch.utils import prng
+
+    config = MeshFlowConfig()
+    frames = torch.from_numpy(synthetic_clip(num_frames, h, w, pan=pan)).to(device)
+    key = prng.PRNGKey(SEED, device=device)
+    levels = config.lk_max_level(h, w) + 1
+    runs, out = {}, {}
+    for shards in (1, 2):
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        res = stabilize_sharded(frames, key, config, h, w, devices=[device + ":0"] * shards)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = read_launches()
+        check(launches == {"lk_level": 2 * levels * shards, "lk_band": 0,
+                           "backward_map": shards},
+              f"sharded 4K {shards}: launches {launches}, expected kernel A "
+              f"{2 * levels * shards}, kernel B {shards}")
+        runs[shards] = (res[0], res[1].tolist(), tuple(float(x) for x in res[2:]))
+        out[shards] = {"seconds": wall, "launches": launches}
+        del res
+        print(f"sharded 4K {shards} shard(s): {num_frames} frames {w}x{h}: {wall:.3f} s; crop "
+              f"{runs[shards][1]}; metrics {runs[shards][2]}; launches {launches}")
+    rel, near = shard_count_gates("sharded 4K", runs[1], runs[2])
+    print(f"sharded 4K: 2 shards against 1: crop equal, metric rel diffs {rel}, frames within "
+          f"1 LSB on {near:.6f} of pixels")
+    del runs, frames
+
+    rng = np.random.default_rng(1)
+    shape = (solve_frames, config.vertex_rows, config.vertex_cols, 2)
+    du = torch.from_numpy(np.cumsum(rng.normal(0, 12.0, shape), axis=0).astype(np.float32))
+    lambdas = torch.from_numpy(rng.uniform(0.5, 100.0, solve_frames).astype(np.float32))
+    du, lambdas = du.to(device), lambdas.to(device)
+    omega, iters = config.temporal_smoothing_radius, config.optimization_num_iterations
+    times = {}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    replicated = jacobi_smooth(du, lambdas, omega, iters)
+    torch.cuda.synchronize()
+    times["replicated"] = time.perf_counter() - start
+    block = solve_frames // 4
+    start = time.perf_counter()
+    halo = jacobi_smooth_sharded([du[i * block : (i + 1) * block] for i in range(4)], lambdas,
+                                 omega, iters)
+    torch.cuda.synchronize()
+    times["halo"] = time.perf_counter() - start
+    halo = torch.cat(halo)
+    check(torch.equal(halo, replicated), "sharded 4K: the halo solve over "
+          f"{solve_frames} frames differs from the replicated one by "
+          f"{(halo - replicated).abs().max().item()} px")
+    print(f"halo Jacobi: {solve_frames} frames of the {config.vertex_rows}x{config.vertex_cols} "
+          f"vertex grid, 4 logical shards of {block}: torch.equal to the replicated solve; "
+          f"halo {times['halo']:.3f} s, replicated {times['replicated']:.3f} s")
+    return dict(out, solve_s=times)
 
 
 # The probe kernels of the kernels line: name -> (CUDA source in csrc/,
@@ -2041,6 +2518,8 @@ def main() -> int:
         print(f"  ptxas {line}")
     _build.library()
 
+    from meshflow_tpu_torch.config import MeshFlowConfig
+
     device = "cuda"
     os.environ.pop("MESHFLOW_LK_FETCH", None)  # the default route, onehot
     cases = lk_cases(device)
@@ -2048,8 +2527,8 @@ def main() -> int:
     b = phase_kernel_b(device)
     c = phase_kernel_c(device, cases["motion"])
     g = phase_gray_kernels(device)
-    launches, cold_s, warm_s = phase_main_path(device)
-    launches_1080p, first_block, warm_1080p_s = phase_1080p(device)
+    launches, cold_s, warm_s, main_out = phase_main_path(device)
+    launches_1080p, first_block, warm_1080p_s, stages_1080p = phase_1080p(device)
     phase_1080p_control(device, first_block, pan=360 * (64 - 1) / (300 - 1))
     online = phase_online(device)
     phase_small_agreement(device)
@@ -2061,8 +2540,29 @@ def main() -> int:
     sk = phase_sharded_kernels(device)
     sharded = phase_sharded(device)
     batch = phase_batch(device)
+    gk = phase_geometry_kernels(device)
+    uhd = phase_4k(device)
+    mesh64 = phase_mesh64(device, stages_1080p)
+    hd = phase_geometry(device, "720p", MeshFlowConfig(), 300, 720, 1280, pan=240)
+    serving = phase_serving(device, main_out, (cold_s, warm_s))
+    del main_out
+    sharded_4k = phase_sharded_4k(device)
     phase_file(device, native_ok)
     probes = phase_probes(device)
+
+    def geometry_launches(name):
+        return {"launches_4k": uhd["launches"][name],
+                "launches_4k_streamed": uhd["streamed"]["default"]["launches"][name],
+                "launches_4k_serving": uhd["serving"]["launches"][name],
+                "launches_serving": serving["launches"][name],
+                "launches_mesh64": mesh64["launches"][name],
+                "launches_mesh64_streamed": mesh64["streamed"]["launches"][name],
+                "launches_720p": hd["launches"][name],
+                "launches_sharded_4k": sharded_4k[2]["launches"][name]}
+
+    def geometry_row(kernel, suffix):
+        return {f"{k}_{suffix}": gk[kernel][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
 
     def path_launches(name):
         return {"launches_gray": gray["main"]["launches"][name],
@@ -2094,14 +2594,17 @@ def main() -> int:
          "launches_streamed": streamed["launches"]["lk_level"],
          **path_launches("lk_level"),
          **{k: a[k] for k in LK_KEYS + ("ms_metric", "ms_online", "warps_per_sm", "regs")},
-         **gray_a, "max_abs_err_gray": g["max_abs_err"], **sharded_a},
+         **gray_a, "max_abs_err_gray": g["max_abs_err"], **sharded_a,
+         **geometry_launches("lk_level"), **geometry_row("A", "4k")},
         {"name": "backward_map", "route": "cuda",
          "source": "meshflow_tpu_torch/csrc/bmap.cu",
          "replaces": "meshflow_tpu/kernels/bmap_pallas.py:90",
          "launches": launches["backward_map"],
          "launches_streamed": streamed["launches"]["backward_map"],
          **path_launches("backward_map"),
-         "launches_gray_1080p": gray["1080p"]["launches"]["backward_map"], **b, **sharded_b},
+         "launches_gray_1080p": gray["1080p"]["launches"]["backward_map"], **b, **sharded_b,
+         **geometry_launches("backward_map"), **geometry_row("B 4K", "4k"),
+         **geometry_row("B 1080p/64 block", "1080p_mesh64_block")},
         {"name": "lk_band", "route": "cuda",
          "source": "meshflow_tpu_torch/csrc/lk_band.cu",
          "replaces": "meshflow_tpu/kernels/_lk_pallas_band.py:89",
@@ -2109,7 +2612,8 @@ def main() -> int:
          "launches_streamed_1080p": memory["launches"]["lk_band"],
          "launches_gray_1080p": gray["1080p"]["launches"]["lk_band"],
          **{k: c[k] for k in LK_KEYS},
-         **{f"{k}_gray": g["band"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+         **{f"{k}_gray": g["band"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         **geometry_row("C", "4k")},
     ] + [
         {"name": name, "route": "cuda",
          "source": f"meshflow_tpu_torch/csrc/{PROBE_KERNELS[name][0]}", **row}

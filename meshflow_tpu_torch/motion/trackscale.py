@@ -31,9 +31,12 @@ import torch
 from meshflow_tpu_torch.config import MeshFlowConfig
 from meshflow_tpu_torch.kernels.color import bgr_to_gray
 
-# Frames box-downscaled together: bounds the int32 block sums to ~1.6 GB
-# at 1080p.
-_BLOCK = 64
+# Texels (frames x height x width x channels) box-downscaled together:
+# bounds a block's int32 copy to ~400 MB at any frame size (143 frames of
+# 640x360, 16 of 1080p, 4 of 4K).  The sums stay int32 (at most
+# 255 * d * d): a default integer sum would promote them to int64, which
+# took 19.2 GB for a 64-frame 4K block.
+_BLOCK_TEXELS = 16 * 1920 * 1080 * 3
 
 
 def scale_factors(
@@ -69,7 +72,7 @@ def _box_block(frames: torch.Tensor, d: int) -> torch.Tensor:
     f, h, w, c = frames.shape
     th, tw = h // d, w // d
     cropped = frames[:, : th * d, : tw * d]
-    s = cropped.reshape(f, th, d, tw, d, c).to(torch.int32).sum(dim=(2, 4))
+    s = cropped.reshape(f, th, d, tw, d, c).to(torch.int32).sum(dim=(2, 4), dtype=torch.int32)
     dd = d * d
     base, rem = s // dd, s % dd
     if dd % 2 == 1:
@@ -87,8 +90,9 @@ def box_downscale_dev(frames: torch.Tensor, d: int) -> torch.Tensor:
     out, integer arithmetic throughout), on the frames' device."""
     if d == 1:
         return frames
+    block = max(1, _BLOCK_TEXELS // frames[0].numel())
     return torch.cat(
-        [_box_block(frames[i : i + _BLOCK], d) for i in range(0, frames.shape[0], _BLOCK)]
+        [_box_block(frames[i : i + block], d) for i in range(0, frames.shape[0], block)]
     )
 
 

@@ -85,10 +85,16 @@ def test_plain_lk_matches_xla_tracker(rng):
     assert np.quantile(dist, 0.99) <= 0.02, np.quantile(dist, 0.99)
 
 
-@pytest.mark.parametrize("shifted", [True, False])
-def test_plain_lk_matches_pallas_interpret(rng, shifted):
-    f, s, c, k, th, tw, max_level, iters = 2, 1, (1 if shifted else 3), 16, 64, 64, 1, 10
-    frames = _trackable_tiles(rng, f, s, c, th, tw, [(0, 0), (3, -5)])
+@pytest.mark.parametrize("shifted,f,c,th,tw,max_level", [
+    pytest.param(True, 2, 1, 64, 64, 1, id="True"),
+    pytest.param(False, 2, 3, 64, 64, 1, id="False"),
+    # a 3840x2160 clip's tiles: d=5 tracks at 768x432, 4x4 subframes of
+    # 108x192, 3 levels; three pairs of BGR tiles
+    pytest.param(True, 4, 3, 108, 192, 2, id="True-4K-tile"),
+])
+def test_plain_lk_matches_pallas_interpret(rng, shifted, f, c, th, tw, max_level):
+    s, k, iters = 1, 16, 10
+    frames = _trackable_tiles(rng, f, s, c, th, tw, [(0, 0), (3, -5), (-4, 2), (2, 6)][:f])
     pts, valid = _points(rng, f, s, k, th, tw, 12)
     jlevels = jax_pyramid(jnp.asarray(frames), max_level)
     jplanes = tuple(lk_pallas.reflect_pad_level(x).astype(jnp.uint8) for x in jlevels)

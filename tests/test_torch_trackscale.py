@@ -1,6 +1,8 @@
 """PyTorch port: track geometry (``meshflow_tpu_torch/motion/trackscale.py``)
 against the JAX package's, and the slice at ``track_downscale=2`` against
-JAX ``_stabilize_frames`` (MESHFLOW_RENDER=device).
+JAX ``_stabilize_frames`` (MESHFLOW_RENDER=device) through
+``compare_track_slice``, which tests/test_torch_geometry.py runs at the
+other clip geometries.
 
 Tolerances: the box downscale is integer arithmetic and must be bit-equal
 to JAX and to cv2; velocity scaling and homography conjugation are one
@@ -72,6 +74,23 @@ def test_box_downscale_tie_case():
         np.testing.assert_array_equal(got, trackscale.box_downscale_host(block, 4))
 
 
+def test_box_downscale_working_set_is_bounded():
+    """4K frames at d=5 (the factor 3840x2160 resolves to) are downscaled
+    in blocks whose int32 copy holds at most _BLOCK_TEXELS values, and the
+    sums stay int32: no op allocates more.  Summing a whole 64-frame block
+    with the default integer promotion to int64 took 19.2 GB on the card
+    (a 4K block's peak device memory).  The result equals cv2's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    frames = np.random.default_rng(5).integers(0, 256, (6, 2160, 3840, 3), dtype=np.uint8)
+    with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as prof:
+        got = trackscale.box_downscale_dev(torch.from_numpy(frames), 5)
+    largest = max(e.cpu_memory_usage for e in prof.events())
+    assert largest <= 4 * trackscale._BLOCK_TEXELS, largest
+    assert got.shape == (6, 432, 768, 3)
+    np.testing.assert_array_equal(got.numpy(), trackscale.box_downscale_host(frames, 5))
+
+
 def test_scale_and_conjugate_match_jax():
     rng = np.random.default_rng(7)
     vel = rng.normal(0, 3, (5, 17, 17, 2)).astype(np.float32)
@@ -130,14 +149,18 @@ def _rel(a, b):
     return abs(float(a) - float(b)) / max(abs(float(b)), 1e-12)
 
 
-def test_slice_track_downscale_2_matches_jax(monkeypatch):
+def compare_track_slice(monkeypatch, fields, num_frames, h, w, variant=0):
+    """The port's slice with `fields` against JAX ``_stabilize_frames``
+    (MESHFLOW_RENDER=device) at the config's track geometry: the track
+    planes and keypoints exact at (th, tw), JAX's motion there scaled
+    back, solved and rendered against the port's (displacements within
+    0.05 px, crop exact), then the output gates.  One render block
+    (num_frames <= CHUNK).  Returns (th, tw)."""
     monkeypatch.setenv("MESHFLOW_RENDER", "device")
-    num_frames, h, w, variant = 12, 180, 320, 0
-    fields = dict(TINY, track_downscale=2)
     frames = _clip(num_frames, h, w, pan=12)
     jc, tc = JaxConfig(**fields), MeshFlowConfig(**fields)
     th, tw = tc.track_shape(h, w)
-    assert (th, tw) == (90, 160)
+    assert (th, tw) == jc.track_shape(h, w)
 
     js = JaxStabilizer(config=jc)
     jcropped, jratio, jdist, jstab = js._stabilize_frames(jnp.asarray(frames), variant, h, w)
@@ -158,6 +181,7 @@ def test_slice_track_downscale_2_matches_jax(monkeypatch):
 
     # JAX's motion at track geometry, scaled back, solved and rendered
     chunk = min(JaxStabilizer.CHUNK, num_frames)
+    assert chunk == num_frames
     jm = jpipe.estimate_motion_chunked(
         jk, jtrack, jax.random.fold_in(js._key, 1), jc, th, tw,
         chunk_pairs=max(chunk - 1, 1),
@@ -182,3 +206,9 @@ def test_slice_track_downscale_2_matches_jax(monkeypatch):
     assert _rel(stab, jstab) <= 1e-3
     assert _rel(ratio, jratio) <= 1e-2
     assert _rel(dist, jdist) <= 1e-2
+    return th, tw
+
+
+def test_slice_track_downscale_2_matches_jax(monkeypatch):
+    fields = dict(TINY, track_downscale=2)
+    assert compare_track_slice(monkeypatch, fields, num_frames=12, h=180, w=320) == (90, 160)
