@@ -31,10 +31,12 @@ From the root of a checkout, on a machine with one CUDA card:
    gray route's tiles), times beside the plain version and the bound;
 6. the main path: ``MeshFlowStabilizer(device="cuda")._stabilize_frames``
    on a synthetic 300-frame 640x360 clip (seeded texture, smooth pan and
-   per-frame jitter), cold then warm, with every kernel's launch count;
+   per-frame jitter), cold (peak device memory), warm and a third pass
+   with its stages timed, with every kernel's launch count against the
+   reckoned one;
 7. the 1080p path: a 300-frame 1920x1080 clip at the automatic track
-   geometry (d=3) with MESHFLOW_LK_FETCH=band, cold then warm, a third
-   pass with its stages timed, kernel C's launch count;
+   geometry (d=3) with MESHFLOW_LK_FETCH=band, as step 6, kernel C in
+   kernel A's place;
 8. the 1080p track_downscale=1 control beside d=3 on the clip's first 64
    frames: wall time and the three metrics of each;
 9. online mode: ``OnlineMeshFlowStabilizer(device="cuda").process`` over
@@ -79,11 +81,14 @@ From the root of a checkout, on a machine with one CUDA card:
    (array-backed in, capturing writer out) on one and two worker threads
    of the card, each job equal to a solo ``stabilize``, launches and walls;
 15d. geometry kernels: kernel A against its plain version at the 4K
-   motion launch (63 pairs of 16 tiles of 108x192x3, 3 levels: a 3840x2160
-   clip tracks at 768x432), kernel C bit for bit against A there; kernel B
-   equal to its plain version on every frame of a 64-frame 4K block and of
-   a 64-frame 1080p block on the 64x64 mesh (its global-table route),
-   device ms beside one plain call over the block and the bound;
+   motion and metric launches (63 pairs and 64 frames of 16 tiles of
+   108x192x3, 3 levels: a 3840x2160 clip tracks at 768x432) and at the
+   sharded 4K launches of one shard (15 pairs and 16 frames of 16 tiles of
+   540x960x3, 4 levels: the sharded path tracks at full size), kernel C
+   bit for bit against A at the 4K motion launch; kernel B equal to its
+   plain version on every frame of a 64-frame 4K block and of a 64-frame
+   1080p block on the 64x64 mesh (its global-table route), device ms
+   beside the plain version's over the block and the bound;
 15e. 4K: a 3840x2160 x 300-frame clip (d=5, kernel A) in memory, cold
    (peak device memory), warm and a pass with its stages timed, launches
    against the reckoned counts (A 30, B 5); serving mode on the same
@@ -133,8 +138,10 @@ the streamed 1080p run); `launches_gray`, `launches_gray_online`,
 (2 workers) in those paths' runs; `*_gray` are A's and C's numbers at C=1
 (step 5a), `*_sharded` A's and B's at a 4-shard block's launches and
 `*_sharded_1_shard` at the 1-shard block's (step 15b); `*_4k` A's, C's and
-B's numbers at the 4K launches and B's `*_1080p_mesh64_block` at the
-64-frame block on the 64x64 mesh (step 15d); `launches_4k`,
+B's numbers at the 4K motion and render launches, A's `*_4k_metric` at
+the 4K metric launch and `*_sharded_4k` and `*_sharded_4k_metric` at the
+sharded 4K launches, and B's `*_1080p_mesh64_block` at the 64-frame block
+on the 64x64 mesh (step 15d); `launches_4k`,
 `launches_4k_streamed`, `launches_4k_serving`, `launches_serving`
 (640x360), `launches_mesh64`, `launches_mesh64_streamed`, `launches_720p`
 and `launches_sharded_4k` (2 shards) in those runs.  Prints one JSON
@@ -793,65 +800,14 @@ def synthetic_clip(num_frames: int, h: int, w: int, pan: int):
 
 
 def phase_main_path(device, num_frames=300, h=360, w=640, pan=120):
-    """The port's main path on a 300-frame 640x360 clip, cold then warm;
-    returns (launches, cold s, warm s, the cold pass's output)."""
-    import math
+    """The port's main path on a 300-frame 640x360 clip (``in_memory_passes``
+    at the default config, kernel A); returns (launches, cold s, warm s, the
+    cold pass's output)."""
+    from meshflow_tpu_torch.config import MeshFlowConfig
 
-    import torch
-
-    from meshflow_tpu_torch.api import MeshFlowStabilizer
-
-    frames = torch.from_numpy(synthetic_clip(num_frames, h, w, pan=pan)).to(device)
-    stab = MeshFlowStabilizer(device=device)
-    variant = MeshFlowStabilizer.ADAPTIVE_WEIGHTS_DEFINITION_ORIGINAL
-
-    reset_launches()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    cropped, ratio, distortion, stability = stab._stabilize_frames(frames, variant)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - start
-    launches = read_launches()
-
-    start = time.perf_counter()
-    cropped2, *_ = stab._stabilize_frames(frames, variant)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - start
-
-    chunk = stab.CHUNK
-    levels = stab.config.lk_max_level(h, w) + 1
-    motion_blocks = math.ceil((num_frames - 1) / (chunk - 1))
-    metric_blocks = math.ceil(num_frames / chunk)
-    crop = stab.last_crop.tolist()
-    disp = stab.last_motion.displacements
-    mean_dx = disp[-1, ..., 0].mean().item()
-    ratio, distortion, stability = float(ratio), float(distortion), float(stability)
-    print(
-        f"main path: {num_frames} frames {w}x{h}: cold {cold_s:.3f} s, warm "
-        f"{warm_s:.3f} s ({num_frames / warm_s:.2f} fps warm); launches {launches}; "
-        f"crop {crop}; cropping ratio {ratio:.6f}, distortion {distortion:.6f}, "
-        f"stability {stability:.6f}; last-frame mean x displacement {mean_dx:.3f} px"
-    )
-    check(
-        launches["lk_level"] == levels * (motion_blocks + metric_blocks),
-        f"kernel A ran {launches['lk_level']} times, expected "
-        f"{levels} levels x ({motion_blocks} motion + {metric_blocks} metric blocks)",
-    )
-    check(launches["backward_map"] == metric_blocks, "kernel B launch count")
-    check(launches["lk_band"] == 0, "kernel C ran on the default route")
-    check(
-        tuple(cropped.shape) == (num_frames, h, w, 3)
-        and cropped.dtype == torch.uint8 and cropped.device.type == device,
-        f"output {tuple(cropped.shape)} {cropped.dtype} {cropped.device}",
-    )
-    check(torch.equal(cropped, cropped2), "warm pass output differs from cold pass")
-    left, top, right, bottom = crop
-    check(0 <= left < right <= w - 1 and 0 <= top < bottom <= h - 1, f"crop {crop}")
-    check(all(math.isfinite(x) for x in (ratio, distortion, stability)), "metrics not finite")
-    check(0.0 <= stability <= 1.0, f"stability {stability} outside [0, 1]")
-    # the camera pans right, so content (and the vertex displacement) moves left
-    check(mean_dx < -pan / 2, f"mean displacement {mean_dx} does not follow the pan")
-    return launches, cold_s, warm_s, (cropped, ratio, distortion, stability)
+    run = in_memory_passes("main path", device, synthetic_clip(num_frames, h, w, pan=pan),
+                           MeshFlowConfig(), pan)
+    return run["launches"], run["cold_s"], run["warm_s"], run["out"]
 
 
 def check_output(name, stab, out, num_frames, h, w, pan, device):
@@ -879,55 +835,71 @@ def check_output(name, stab, out, num_frames, h, w, pan, device):
     return crop, metrics, mean_dx
 
 
-def phase_1080p(device, num_frames=300, h=1080, w=1920, pan=360):
-    """The 1080p path, automatic track geometry (d=3: tracking at 640x360),
-    with kernel C (MESHFLOW_LK_FETCH=band for this phase only), cold, warm,
-    then a third pass that times its stages."""
-    import math
+def in_memory_passes(name, device, frames_np, config, pan, route=None):
+    """``_stabilize_frames`` on `frames_np` with `config`, on kernel A (the
+    default route) or, with route="band", on kernel C: a cold pass with its
+    peak device memory above the start (the clip's upload included), a warm
+    pass equal to it, a third pass with its stages timed; the cold pass's
+    launches against the reckoned counts and the output checks.  Returns a
+    dict with the stabilizer, the frames and the cold pass's output on the
+    device."""
+    import contextlib
 
     import torch
 
     from meshflow_tpu_torch.api import MeshFlowStabilizer
     from meshflow_tpu_torch.utils.profiling import StageTimer
 
-    frames = torch.from_numpy(synthetic_clip(num_frames, h, w, pan=pan)).to(device)
-    stab = MeshFlowStabilizer(device=device)
-    config = stab.config
-    th, tw = config.track_shape(h, w)
-    with fetch_route("band"):
-        reset_launches()
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        out = stab._stabilize_frames(frames, 0)
-        torch.cuda.synchronize()
-        cold_s = time.perf_counter() - start
+    num_frames, h, w = frames_np.shape[:3]
+    stab = MeshFlowStabilizer(config=config, device=device)
+    with fetch_route(route) if route else contextlib.nullcontext():
+        with peak_memory() as peak:
+            frames = torch.from_numpy(frames_np).to(device)
+            reset_launches()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = stab._stabilize_frames(frames, 0)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - start
         launches = read_launches()
         start = time.perf_counter()
-        out2 = stab._stabilize_frames(frames, 0)
+        warm = stab._stabilize_frames(frames, 0)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - start
+        check(torch.equal(out[0], warm[0]), f"{name}: warm pass output differs from cold pass")
+        del warm
         # a third pass for the stages: the timer synchronizes at each stage end
         stab._stabilize_frames(frames, 0, StageTimer(enabled=True, device=device))
-    crop, metrics, mean_dx = check_output("1080p", stab, out, num_frames, h, w, pan, device)
-    stages = {name: round(sec, 4) for name, sec in stab.last_timer.stages}
-    chunk = stab.CHUNK
-    levels = config.lk_max_level(th, tw) + 1
-    blocks = math.ceil((num_frames - 1) / (chunk - 1)), math.ceil(num_frames / chunk)
-    print(
-        f"1080p path (d={config.resolve_track_downscale(h, w)}, tracking {tw}x{th}, band): "
-        f"{num_frames} frames {w}x{h}: cold {cold_s:.3f} s, warm {warm_s:.3f} s "
-        f"({num_frames / warm_s:.2f} fps warm); launches {launches}; crop {crop}; "
-        f"cropping ratio {metrics[0]:.6f}, distortion {metrics[1]:.6f}, stability "
-        f"{metrics[2]:.6f}; last-frame mean x displacement {mean_dx:.3f} px; "
-        f"third pass stages (s) {stages}"
-    )
-    check(launches["lk_band"] == levels * sum(blocks),
-          f"kernel C ran {launches['lk_band']} times, expected {levels} levels x "
-          f"({blocks[0]} motion + {blocks[1]} metric blocks)")
-    check(launches["lk_level"] == 0, "kernel A ran under MESHFLOW_LK_FETCH=band")
-    check(launches["backward_map"] == blocks[1], "kernel B launch count (1080p)")
-    check(torch.equal(out[0], out2[0]), "1080p warm pass output differs from cold pass")
-    return launches, frames[:64], warm_s, stages
+    stages = {stage: round(sec, 4) for stage, sec in stab.last_timer.stages}
+    crop, metrics, mean_dx = check_output(name, stab, out, num_frames, h, w, pan, device)
+    lk, bmap = stream_launch_counts(config, h, w, num_frames, stab.CHUNK, maps_a_block=1)
+    kernel, key = ("C", "lk_band") if route == "band" else ("A", "lk_level")
+    check(launches == {"lk_level": 0, "lk_band": 0, key: lk, "backward_map": bmap},
+          f"{name}: launches {launches}, expected kernel {kernel} {lk}, kernel B {bmap}")
+    th, tw = config.track_shape(h, w)
+    print(f"{name}: {num_frames} frames {w}x{h}, mesh {config.mesh_row_count}x"
+          f"{config.mesh_col_count}, d={config.resolve_track_downscale(h, w)} (tracking "
+          f"{tw}x{th}), kernel {kernel}: cold {cold_s:.3f} s, warm {warm_s:.3f} s "
+          f"({num_frames / warm_s:.2f} fps); peak device memory {peak.gib:.3f} GiB; launches "
+          f"{launches} (reckoned: kernel {kernel} {lk}, kernel B {bmap}); crop {crop}; "
+          f"cropping ratio {metrics[0]:.6f}, distortion {metrics[1]:.6f}, stability "
+          f"{metrics[2]:.6f}; last-frame mean x displacement {mean_dx:.3f} px; third pass "
+          f"stages (s) {stages}")
+    return {"stab": stab, "frames": frames, "out": out, "cold_s": cold_s, "warm_s": warm_s,
+            "stages": stages, "peak_gib": peak.gib, "launches": launches, "crop": crop,
+            "metrics": metrics}
+
+
+def phase_1080p(device, num_frames=300, h=1080, w=1920, pan=360):
+    """The 1080p path, automatic track geometry (d=3: tracking at 640x360),
+    with kernel C (MESHFLOW_LK_FETCH=band for this phase only):
+    ``in_memory_passes``.  Returns (launches, the clip's first 64 frames on
+    the device, warm s, the third pass's stages)."""
+    from meshflow_tpu_torch.config import MeshFlowConfig
+
+    run = in_memory_passes("1080p path", device, synthetic_clip(num_frames, h, w, pan=pan),
+                           MeshFlowConfig(), pan, route="band")
+    return run["launches"], run["frames"][:64], run["warm_s"], run["stages"]
 
 
 def phase_1080p_control(device, frames, pan):
@@ -1614,8 +1586,6 @@ def host_ram_gib() -> float:
     return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / (1 << 30)
 
 
-
-
 class pass2_sources:
     """Records where each block of the stream's pass 2 took its frames:
     (start, frames, "resident" | "host cache" | "decode"), and the resident
@@ -1663,16 +1633,19 @@ BMAP_SLAB = 16
 
 
 def phase_geometry_kernels(device, bmap_cases=GEOMETRY_BMAP_CASES, size=(2160, 3840)):
-    """Kernels A, C and B at the launch shapes of the new geometries: A
-    against its plain version at the 4K motion launch (63 pairs of 16
-    tiles of 108x192x3, 3 levels: d=5 tracks at 768x432) with A's gates,
-    its device ms beside the plain version's and the bound; C at the same
-    launch bit for bit against A; B at a 64-frame 4K block and a 64-frame
-    1080p block on the 64x64 mesh (its global-table route), map_x, map_y,
+    """Kernels A, C and B at the launch shapes of the new geometries.  A
+    against its plain version with A's gates, its device ms beside the
+    plain version's and the bound, at the 4K launches (d=5 tracks at
+    768x432: 16 tiles of 108x192x3, 3 levels), the 63-pair motion block and
+    the 64-frame metric block, and at the sharded path's 4K launches (no
+    track geometry: 16 tiles of 540x960x3, 4 levels), a 1-shard block's
+    15-pair motion and 16-frame metric launches; C at the 4K motion launch
+    bit for bit against A; B at a 64-frame 4K block and a 64-frame 1080p
+    block on the 64x64 mesh (its global-table route), map_x, map_y,
     covered and crop edges equal to the plain version on every frame (the
-    plain version BMAP_SLAB frames at a time), device ms of the whole
-    block beside one plain call over it and the bound from the work its
-    data needs."""
+    plain version BMAP_SLAB frames at a time, counting its work), device
+    ms of the whole block beside the plain version's summed over its slabs
+    and the bound from the work its data needs."""
     import torch
 
     from meshflow_tpu_torch.config import MeshFlowConfig
@@ -1682,11 +1655,29 @@ def phase_geometry_kernels(device, bmap_cases=GEOMETRY_BMAP_CASES, size=(2160, 3
     config = MeshFlowConfig()
     th, tw = config.track_shape(*size)
     sub_h, sub_w = config.subframe_shape(th, tw)
-    case = LkCase(device, "4K motion", 63, th=sub_h, tw=sub_w,
-                  max_level=config.lk_max_level(th, tw), seed=SEED + 32)
+    levels = config.lk_max_level(th, tw)
+    full_h, full_w = config.subframe_shape(*size)
+    full_levels = config.lk_max_level(*size)
+    sharded_frames = 16  # the sharded 4K phase's clip, on one shard
+    # a pair of a case moves up to 2 x max_shift px; one of the sharded
+    # clip up to 36 / 15 px of pan and 6 of jitter
+    lk = {
+        "A": LkCase(device, "4K motion", 63, th=sub_h, tw=sub_w, max_level=levels,
+                    seed=SEED + 32),
+        "A 4K metric": LkCase(device, "4K metric", 64, shifted=False, th=sub_h, tw=sub_w,
+                              max_level=levels, seed=SEED + 33),
+        "A sharded 4K motion": LkCase(device, "sharded 4K motion", sharded_frames - 1,
+                                      th=full_h, tw=full_w, max_level=full_levels,
+                                      max_shift=10, seed=SEED + 34),
+        "A sharded 4K metric": LkCase(device, "sharded 4K metric", sharded_frames,
+                                      shifted=False, th=full_h, tw=full_w,
+                                      max_level=full_levels, max_shift=10, seed=SEED + 35),
+    }
     out = {}
-    out["A"], max_err = kernel_a_row("kernel A 4K motion", case, 1)
-    out["A"]["max_abs_err"] = max_err
+    for key, case in lk.items():
+        out[key], max_err = kernel_a_row(f"kernel A {case.name}", case, 1)
+        out[key]["max_abs_err"] = max_err
+    case = lk["A"]
 
     def band():
         with fetch_route("band"):
@@ -1701,17 +1692,24 @@ def phase_geometry_kernels(device, bmap_cases=GEOMETRY_BMAP_CASES, size=(2160, 3
     out["C"]["ms"] = ms
     print(f"kernel C 4K motion per launch ({case.shape}): corners and status bit-identical to "
           f"kernel A; kernel C {ms:.4f} ms, kernel A {out['A']['ms']:.4f} ms")
-    del cp, cst, ap, ast
+    del cp, cst, ap, ast, lk, case
 
     for name in bmap_cases:
         config, stab, unstab, bh, bw = bmap_inputs(device, name, bmap_cases)
         kb = bmap_cuda.backward_map(stab, unstab, config, bh, bw)
         edges = crop_edges(kb, bh, bw)
-        count, err = {}, 0.0
+        count, err, plain_ms = {}, 0.0, 0.0
         for s in range(0, stab.shape[0], BMAP_SLAB):
             sl = slice(s, s + BMAP_SLAB)
+            torch.cuda.synchronize()
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
             pb, work = bmap_cuda.backward_map_plain(stab[sl], unstab, config, bh, bw,
                                                     return_work=True)
+            end.record()
+            end.synchronize()
+            plain_ms += begin.elapsed_time(end)
             equal = [bool(torch.equal(k[sl], p)) for k, p in zip(kb, pb)]
             edges_equal = bool(torch.equal(edges[sl], crop_edges(pb, bh, bw)))
             check(all(equal) and edges_equal,
@@ -1727,71 +1725,16 @@ def phase_geometry_kernels(device, bmap_cases=GEOMETRY_BMAP_CASES, size=(2160, 3
         del kb, edges
         bound_ms, bound_by, _ = bmap_bound_of(config, stab, unstab, count, pixels)
         ms = device_ms(lambda: bmap_cuda.backward_map(stab, unstab, config, bh, bw))
-        torch.cuda.synchronize()
-        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        begin.record()
-        bmap_cuda.backward_map_plain(stab, unstab, config, bh, bw)
-        end.record()
-        end.synchronize()
-        plain_ms = begin.elapsed_time(end)
         print(f"kernel B {name} ({stab.shape[0]} frames {bw}x{bh}, mesh "
               f"{config.mesh_row_count}): map_x, map_y, covered and crop edges equal to the "
               f"plain version on every frame; a pixel needs "
               + ", ".join(f"{v / pixels:.4f} {k}" for k, v in count.items())
-              + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one call), bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+              + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (its {BMAP_SLAB}-frame slabs, "
+              f"work counted, summed), bound {bound_ms:.4f} ms ({bound_by})")
         out[f"B {name}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "max_abs_err": err}
         del stab, unstab
     return out
-
-
-def in_memory_passes(name, device, frames_np, config, pan):
-    """``_stabilize_frames`` on `frames_np` with `config` (kernel A, the
-    default route): a cold pass with its peak device memory above the
-    start (the clip's upload included), a warm pass equal to it, a third
-    pass with its stages timed; the cold pass's launches against the
-    reckoned counts and the output checks.  Returns a dict with the
-    stabilizer, the frames and the cold pass's output on the device."""
-    import torch
-
-    from meshflow_tpu_torch.api import MeshFlowStabilizer
-    from meshflow_tpu_torch.utils.profiling import StageTimer
-
-    num_frames, h, w = frames_np.shape[:3]
-    stab = MeshFlowStabilizer(config=config, device=device)
-    with peak_memory() as peak:
-        frames = torch.from_numpy(frames_np).to(device)
-        reset_launches()
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        out = stab._stabilize_frames(frames, 0)
-        torch.cuda.synchronize()
-        cold_s = time.perf_counter() - start
-    launches = read_launches()
-    start = time.perf_counter()
-    warm = stab._stabilize_frames(frames, 0)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - start
-    check(torch.equal(out[0], warm[0]), f"{name}: warm pass output differs from cold pass")
-    del warm
-    stab._stabilize_frames(frames, 0, StageTimer(enabled=True, device=device))
-    stages = {stage: round(sec, 4) for stage, sec in stab.last_timer.stages}
-    crop, metrics, mean_dx = check_output(name, stab, out, num_frames, h, w, pan, device)
-    lk, bmap = stream_launch_counts(config, h, w, num_frames, stab.CHUNK, maps_a_block=1)
-    check(launches == {"lk_level": lk, "lk_band": 0, "backward_map": bmap},
-          f"{name}: launches {launches}, expected kernel A {lk}, kernel B {bmap}")
-    th, tw = config.track_shape(h, w)
-    print(f"{name}: {num_frames} frames {w}x{h}, mesh {config.mesh_row_count}x"
-          f"{config.mesh_col_count}, d={config.resolve_track_downscale(h, w)} (tracking "
-          f"{tw}x{th}): cold {cold_s:.3f} s, warm {warm_s:.3f} s ({num_frames / warm_s:.2f} fps); "
-          f"peak device memory {peak.gib:.3f} GiB; launches {launches} (reckoned: kernel A "
-          f"{lk}, kernel B {bmap}); crop {crop}; cropping ratio {metrics[0]:.6f}, distortion "
-          f"{metrics[1]:.6f}, stability {metrics[2]:.6f}; last-frame mean x displacement "
-          f"{mean_dx:.3f} px; third pass stages (s) {stages}")
-    return {"stab": stab, "frames": frames, "out": out, "cold_s": cold_s, "warm_s": warm_s,
-            "stages": stages, "peak_gib": peak.gib, "launches": launches, "crop": crop,
-            "metrics": metrics}
 
 
 def streamed_against(name, run, frames_np, device, **env):
@@ -2595,7 +2538,10 @@ def main() -> int:
          **path_launches("lk_level"),
          **{k: a[k] for k in LK_KEYS + ("ms_metric", "ms_online", "warps_per_sm", "regs")},
          **gray_a, "max_abs_err_gray": g["max_abs_err"], **sharded_a,
-         **geometry_launches("lk_level"), **geometry_row("A", "4k")},
+         **geometry_launches("lk_level"), **geometry_row("A", "4k"),
+         **geometry_row("A 4K metric", "4k_metric"),
+         **geometry_row("A sharded 4K motion", "sharded_4k"),
+         **geometry_row("A sharded 4K metric", "sharded_4k_metric")},
         {"name": "backward_map", "route": "cuda",
          "source": "meshflow_tpu_torch/csrc/bmap.cu",
          "replaces": "meshflow_tpu/kernels/bmap_pallas.py:90",
