@@ -73,13 +73,22 @@ From the root of a checkout, on a machine with one CUDA card:
    motion and 75-frame metric launches and the 1-shard block's 300
    pairs; the plain version timed at the motion launch) against its plain
    version, kernel B at its 75- and 300-frame launches equal to its plain
-   version, then ``parallel.stabilize_sharded`` on the 640x360 clip with its
-   shards on ["cuda:0"] and ["cuda:0"] * 4: crop equal, metrics within
-   1e-3, frames within 1 LSB on > 99.9% of pixels, the halo solve
-   torch.equal to the replicated one, serving mode, launches and walls;
+   version (all in this process), then ``parallel.stabilize_sharded`` on
+   the 640x360 clip with its shards on ["cuda:0"] (this process) and
+   ["cuda:0"] * 4 (four worker processes, a gloo group): crop equal,
+   metrics within 1e-3, frames within 1 LSB on > 99.9% of pixels, the halo
+   solve torch.equal to the replicated one, serving mode, launches summed
+   over the processes, cold and warm walls, each worker's peak device
+   memory, the CPU seconds of this process and of each worker with their
+   busiest threads (``cpu_use``), the card's memory in use with the
+   workers idle, and the clip's host round trip;
 15c. batch: ``parallel.stabilize_batch`` on two 640x360 x 120-frame clips
-   (array-backed in, capturing writer out) on one and two worker threads
-   of the card, each job equal to a solo ``stabilize``, launches and walls;
+   (array-backed in, capturing writer out) on one worker (this process)
+   and on two worker processes of the card, cold and warm, each job equal
+   to a solo ``stabilize``, launches summed over the processes, walls and
+   each worker's CPU seconds, the CPU seconds of every process by thread,
+   the card's busy share as nvidia-smi samples it; one worker once more
+   with the card's kernels traced;
 15d. geometry kernels: kernel A against its plain version at the 4K
    motion and metric launches (63 pairs and 64 frames of 16 tiles of
    108x192x3, 3 levels: a 3840x2160 clip tracks at 768x432) and at the
@@ -105,9 +114,16 @@ From the root of a checkout, on a machine with one CUDA card:
 15h. serving at 640x360: compute_metrics=False against the main path's
    cold pass, frames torch.equal, area scores NaN, kernel A 15 launches;
 15i. sharded 4K: ``parallel.stabilize_sharded`` on 3840x2160 x 16 frames
-   over 1 and 2 logical shards of the card within the shard-count gates of
-   step 15b; the halo Jacobi alone over 3600 frames of seeded displacement
-   fields of the default mesh on 4 logical shards, torch.equal to the
+   over 1 and 2 logical shards of the card (this process; two worker
+   processes, cold and warm) within the shard-count gates of step 15b,
+   with the peak device memory of each process, the CPU seconds of every
+   process by thread and the card's busy share as nvidia-smi samples it
+   (one shard also traced); the 2-process call taken apart
+   (``sharded_stages``: this process's copies, rank 0's stages with the
+   card synchronized between them, then rank 0's kernels traced while
+   rank 1 runs untraced), torch.equal to the plain call; the halo Jacobi
+   alone over 3600 frames of seeded displacement fields of the default
+   mesh on 4 logical shards, four worker processes, torch.equal to the
    replicated solve;
 16. the probes: ``python -m meshflow_tpu_torch.probes`` with the six
    probe kernels' launch counts set to 0 before it (probe F also on
@@ -135,7 +151,8 @@ kernel's `ms` is at the main path's motion launch, `ms_8_pairs` at the
 counts a kernel's launches in the streamed 640x360 run (kernel C's in
 the streamed 1080p run); `launches_gray`, `launches_gray_online`,
 `launches_gray_1080p`, `launches_sharded` (4 shards) and `launches_batch`
-(2 workers) in those paths' runs; `*_gray` are A's and C's numbers at C=1
+(2 workers) in those paths' runs (on the parallel paths, summed over the
+worker processes); `*_gray` are A's and C's numbers at C=1
 (step 5a), `*_sharded` A's and B's at a 4-shard block's launches and
 `*_sharded_1_shard` at the 1-shard block's (step 15b); `*_4k` A's, C's and
 B's numbers at the 4K motion and render launches, A's `*_4k_metric` at
@@ -161,7 +178,10 @@ passes), each tree in a process of its own, in the order DIR, this, this,
 DIR.  It checks that both trees give the same bytes (kernel A's track,
 kernel B's outputs, the main path's output and the timed probe kernels'
 outputs) and prints the times.  ``--parts lk,bmap,main,probes`` runs only
-the parts named; ``probes`` times probe D's copy and fine select at 16,
+the parts named (``batch``, two clips on two worker processes, and
+``sharded``, the 4K sharded call and the halo Jacobi over worker
+processes, run only when named); ``probes`` times probe D's
+copy and fine select at 16,
 64 and 128 features, its one-hot select at 16 (all three at 16 also at
 one round a launch), probe E at the probe's r0 and probe G at B = 8 (with
 and without programmatic dependent launch, and its launch floor, where
@@ -171,6 +191,7 @@ the tree has them), beside the PyTorch calls of the same functions.
 from __future__ import annotations
 
 import argparse
+import datetime
 import hashlib
 import json
 import os
@@ -1464,18 +1485,312 @@ def shard_count_gates(name, one, many):
     return rel, near
 
 
+def processes_of(devices):
+    """How a parallel call over `devices` ran: its process count, the
+    group's backend and each worker's peak device memory (GiB) and CPU
+    seconds in its last call (one entry: the calling process)."""
+    import torch
+
+    from meshflow_tpu_torch.parallel import workers
+
+    if len(devices) == 1:
+        return {"processes": 1, "backend": None, "peak_gib": [], "cpu_seconds": []}
+    pool = workers.pool([torch.device(d) for d in devices])
+    return {"processes": len(pool.procs), "backend": pool.backend,
+            "peak_gib": [(u["peak_bytes"] or 0) / (1 << 30) for u in pool.last_usage],
+            "cpu_seconds": [u["cpu_seconds"] for u in pool.last_usage]}
+
+
+def card_used_gib() -> float:
+    """Device memory in use on the card by every process (mem_get_info)."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / (1 << 30)
+
+
+def card_memory_mib() -> dict:
+    """{pid: MiB of the card} of every process on it, as nvidia-smi lists
+    its compute processes (empty where it cannot)."""
+    try:
+        text = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return {}
+    rows = {}
+    for line in text.splitlines():
+        try:
+            pid, mib = (int(x) for x in line.split(","))
+        except ValueError:
+            continue
+        rows[pid] = mib
+    return rows
+
+
+def timed_parallel(fn):
+    """(fn(), wall seconds), the card synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def thread_cpu(pid: int | None = None) -> dict:
+    """{thread id: (name, CPU seconds)} of a process's threads (this one by
+    default): utime + stime from /proc/PID/task/*/stat; empty where /proc
+    cannot be read."""
+    pid = os.getpid() if pid is None else pid
+    ticks = os.sysconf("SC_CLK_TCK")
+    out = {}
+    try:
+        tids = os.listdir(f"/proc/{pid}/task")
+    except OSError:
+        return out
+    for tid in tids:
+        try:
+            with open(f"/proc/{pid}/task/{tid}/stat") as f:
+                stat = f.read()
+        except OSError:  # the thread ended meanwhile
+            continue
+        name = stat[stat.index("(") + 1 : stat.rindex(")")]
+        fields = stat[stat.rindex(")") + 2 :].split()
+        out[int(tid)] = ("main" if int(tid) == pid else name,
+                         (int(fields[11]) + int(fields[12])) / ticks)
+    return out
+
+
+class cpu_use:
+    """CPU seconds over a block of this process and of the live worker
+    pool's processes (those up when it starts), each with its busiest
+    threads: `by_process` maps "caller" or "worker i" to {"seconds",
+    "threads": [[name, seconds, how many threads of that name], ...]}."""
+
+    def __enter__(self):
+        from meshflow_tpu_torch.parallel import workers
+
+        live = workers.current()
+        self.pids = {"caller": os.getpid()}
+        self.pids.update({f"worker {i}": p.pid for i, p in enumerate(live.procs if live else [])})
+        self.before = {name: thread_cpu(pid) for name, pid in self.pids.items()}
+        return self
+
+    def __exit__(self, *exc):
+        self.by_process = {}
+        for name, pid in self.pids.items():
+            after, before = thread_cpu(pid), self.before[name]
+            by_name = {}
+            for tid, (thread, seconds) in after.items():
+                used = seconds - before.get(tid, (thread, 0.0))[1]
+                total, count = by_name.get(thread, (0.0, 0))
+                by_name[thread] = (total + used, count + 1)
+            threads = sorted(([t, round(s, 3), n] for t, (s, n) in by_name.items() if s > 0),
+                             key=lambda x: -x[1])
+            self.by_process[name] = {"seconds": sum(t[1] for t in threads),
+                                     "threads": threads[:4]}
+
+    def line(self) -> str:
+        return "; ".join(
+            f"{name} {u['seconds']:.3f} s (" + ", ".join(f"{t} x{n} {s}" for t, s, n in
+                                                        u["threads"]) + ")"
+            for name, u in self.by_process.items())
+
+
+def kernel_busy_seconds(prof, device_index: int) -> float:
+    """The seconds one card ran kernels (the union of their intervals) in a
+    ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA and e.device_index == device_index
+    )
+    if not spans:
+        return 0.0
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    return busy * 1e-6
+
+
+def kernel_share(device, run):
+    """`run()` once more in this process with the card's kernels traced
+    (``torch.profiler``, CUDA activity only): (wall seconds, seconds the
+    card ran kernels).  Not for worker processes: traced in several
+    processes at once, runs took 4 to 11 times their wall, on one card or
+    on four; ``card_utilization`` reads those."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, wall = timed_parallel(run)
+    return wall, kernel_busy_seconds(prof, torch.device(device).index)
+
+
+class card_utilization:
+    """nvidia-smi's utilization.gpu of every card (the share of its sample
+    period in which a kernel of any process ran), read every 50 ms while
+    the block runs: `share` maps a card's index to the mean of the samples
+    stamped inside the block (empty where nvidia-smi gives no number)."""
+
+    def __enter__(self):
+        self.share, self.proc = {}, None
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=timestamp,index,utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms", "50"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            return self
+        time.sleep(1.0)  # its first samples
+        self.start = datetime.datetime.now()
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is None:
+            return
+        end = datetime.datetime.now()
+        self.proc.terminate()
+        out = self.proc.communicate(timeout=30)[0]
+        samples = {}
+        for line in out.splitlines():
+            try:
+                stamp, index, util = (x.strip() for x in line.split(","))
+                at = datetime.datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f")
+                value = float(util) / 100
+            except ValueError:
+                continue
+            if self.start <= at <= end:
+                samples.setdefault(int(index), []).append(value)
+        self.share = {i: sum(v) / len(v) for i, v in samples.items()}
+
+
+def host_round_trip_s(frames):
+    """The sharded path's extra host round trip for `frames` on the card:
+    the clip into a shared host tensor, and a host output of its size back
+    to the card (seconds, the second of two tries)."""
+    import torch
+
+    shared = torch.empty(frames.shape, dtype=torch.uint8).share_memory_()
+    for _ in range(2):
+        _, down = timed_parallel(lambda: shared.copy_(frames))
+        _, up = timed_parallel(lambda: shared.to(frames.device))
+    return down + up
+
+
+def staged_rank(rank, world, frames, out, sent, key, config, h, w, mode, trace=False):
+    """``pipeline._shard_rank`` in a worker, rank 0's stages timed with the
+    card synchronized at each stage's ends, so that they add up: "start"
+    (from the caller's send to the task's start: the task unpickled, the
+    shared buffers' handles received and mapped), "upload" (the rank's
+    block to the card), "ppermute" / "all_gather" / "halo" (each kind of
+    collective: the staging through the host, the wire and the wait for
+    the peer), "compute" (the rest of ``shard_step``) and "write" (the
+    cropped block into the shared output).  With `trace`, rank 0's step
+    runs under ``torch.profiler`` instead and "kernels" is the seconds its
+    card ran its kernels.  Returns (the rank's results, the stages or
+    None)."""
+    import torch
+
+    from meshflow_tpu_torch.parallel import pipeline, workers
+
+    if rank:
+        return pipeline._shard_rank(rank, world, frames, out, key, config, h, w, 0, mode), None
+    device = workers.device()
+    stages = {"start": time.time() - sent}
+    comm = workers.Collectives(rank, world, device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def timed(name, fn):
+        def run(*args):
+            sync()
+            start = time.perf_counter()
+            got = fn(*args)
+            sync()
+            stages[name] = stages.get(name, 0.0) + time.perf_counter() - start
+            return got
+        return run
+
+    collectives = ("ppermute", "all_gather", "halo")
+    if not trace:
+        for name in collectives:
+            setattr(comm, name, timed(name, getattr(comm, name)))
+    block = frames.shape[0] // world
+    rows = slice(rank * block, (rank + 1) * block)
+    local = timed("upload", lambda: frames[rows].to(device))()
+    args = (local, key.to(device), config, h, w, frames.shape[0], 0, mode, comm)
+    if trace:
+        kind = "CUDA" if device.type == "cuda" else "CPU"  # CPU: a rehearsal, no kernels
+        with torch.profiler.profile(activities=[getattr(torch.profiler.ProfilerActivity, kind)]) as prof:
+            got = timed("step", lambda: pipeline.shard_step(*args))()
+        stages["kernels"] = kernel_busy_seconds(prof, device.index)
+    else:
+        got = timed("compute", lambda: pipeline.shard_step(*args))()
+        stages["compute"] -= sum(stages.get(n, 0.0) for n in collectives)
+    timed("write", lambda: out[rows].copy_(got[0]))()
+    return tuple(x.cpu() for x in got[1:]), stages
+
+
+def sharded_stages(devices, frames, key, config, h, w, trace=False):
+    """One ``stabilize_sharded`` call over worker processes taken apart,
+    as ``pipeline._over_ranks`` makes it: the caller's "copy in" (the clip
+    into the pool's shared buffer), "ranks" (from the first send to the
+    last answer) and "copy out" (the shared output to the first device);
+    and rank 0's stages (``staged_rank``).  Returns ({stage: seconds},
+    rank 0's result)."""
+    import torch
+
+    from meshflow_tpu_torch.parallel import workers
+
+    world = len(devices)
+    # stabilize_sharded's choice: blocks shorter than omega solve replicated
+    block = frames.shape[0] // world
+    mode = "halo" if block >= config.temporal_smoothing_radius else "replicated"
+    pool = workers.pool([torch.device(d) for d in devices])
+    pool.init_group()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    shared = pool.shared("in", frames.shape, frames.dtype)
+    shared.copy_(frames)
+    out = pool.shared("out", frames.shape, frames.dtype)
+    copied = time.perf_counter()
+    results = pool.each(staged_rank, [(r, world, shared, out, time.time(), key.cpu(), config, h,
+                                       w, mode, trace) for r in range(world)])
+    ranked = time.perf_counter()
+    back = out.to(devices[0], copy=True)
+    torch.cuda.synchronize()
+    stages = {"copy in": copied - start, "ranks": ranked - copied,
+              "copy out": time.perf_counter() - ranked}
+    stages.update({f"rank 0 {k}": v for k, v in results[0][1].items()})
+    return stages, (back,) + results[0][0]
+
+
 def phase_sharded(device, num_frames=300, h=360, w=640, pan=120):
     """``parallel.stabilize_sharded`` on the 640x360 x 300 clip, its shards
-    over ["cuda:0"] and ["cuda:0"] * 4 (blocks of 75 >= omega, so the halo
-    solver engages): crop equal, metrics within 1e-3 relative, frames <= 1
-    LSB apart on > 99.9% of pixels (the JAX package's shard-count gates);
-    at 4 shards "halo" torch.equal to "replicated"; serving mode the same
-    pixels and NaN metrics; the wall of each run and its launches."""
+    over ["cuda:0"] (the calling process) and ["cuda:0"] * 4 (four worker
+    processes, a gloo group; blocks of 75 >= omega, so the halo solver
+    engages): crop equal, metrics within 1e-3 relative, frames <= 1 LSB
+    apart on > 99.9% of pixels (the JAX package's shard-count gates); at 4
+    shards "halo" torch.equal to "replicated"; serving mode the same pixels
+    and NaN metrics; the cold and warm wall of 1 and 4 shards, the wall of
+    the others, launches summed over the processes, the backend, each
+    worker's peak device memory and the host round trip of the clip."""
     import math
 
     import torch
 
     from meshflow_tpu_torch.config import MeshFlowConfig
+    from meshflow_tpu_torch.parallel import workers
     from meshflow_tpu_torch.parallel.pipeline import stabilize_sharded
     from meshflow_tpu_torch.utils import prng
 
@@ -1483,33 +1798,47 @@ def phase_sharded(device, num_frames=300, h=360, w=640, pan=120):
     frames = torch.from_numpy(synthetic_clip(num_frames, h, w, pan=pan)).to(device)
     key = prng.PRNGKey(SEED, device=device)
     levels = config.lk_max_level(h, w) + 1
-    runs = {}
+    runs, out = {}, {}
     for name, shards, mode, cfg in (
+        ("1 shard cold", 1, "halo", config),
         ("1 shard", 1, "halo", config),
+        ("4 shards cold", 4, "halo", config),
         ("4 shards", 4, "halo", config),
         ("4 shards replicated", 4, "replicated", config),
         ("4 shards serving", 4, "halo", MeshFlowConfig(compute_metrics=False)),
     ):
+        devices = [device + ":0"] * shards
         reset_launches()
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        out = stabilize_sharded(frames, key, cfg, h, w, devices=[device + ":0"] * shards,
-                                solver_mode=mode)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
+        with cpu_use() as cpu:
+            res, wall = timed_parallel(lambda: stabilize_sharded(
+                frames, key, cfg, h, w, devices=devices, solver_mode=mode))
         launches = read_launches()
-        metrics = tuple(float(x) for x in out[2:])
-        runs[name] = (out[0], out[1].tolist(), metrics, wall, launches)
+        procs = processes_of(devices)
+        metrics = tuple(float(x) for x in res[2:])
+        runs[name] = (res[0], res[1].tolist(), metrics)
         lk = levels * shards * (2 if cfg.compute_metrics else 1)
         check(launches["lk_level"] == lk and launches["backward_map"] == shards
               and launches["lk_band"] == 0,
               f"sharded {name}: launches {launches}, expected kernel A {lk}, kernel B {shards}")
-        check(tuple(out[0].shape) == (num_frames, h, w, 3) and out[0].dtype == torch.uint8,
-              f"sharded {name}: output {tuple(out[0].shape)} {out[0].dtype}")
-        print(f"sharded {name}: {num_frames} frames {w}x{h}: {wall:.3f} s; crop "
+        check(tuple(res[0].shape) == (num_frames, h, w, 3) and res[0].dtype == torch.uint8
+              and res[0].device == torch.device(devices[0]),
+              f"sharded {name}: output {tuple(res[0].shape)} {res[0].dtype} {res[0].device}")
+        out[name] = {"seconds": wall, "launches": launches, "cpu": cpu.by_process, **procs}
+        print(f"sharded {name}: {num_frames} frames {w}x{h}: {wall:.3f} s; "
+              f"{procs['processes']} process(es), backend {procs['backend']}, worker peak GiB "
+              f"{[round(x, 3) for x in procs['peak_gib']]}, worker CPU s "
+              f"{[round(x, 3) for x in procs['cpu_seconds']]}; CPU {cpu.line()}; crop "
               f"{runs[name][1]}; metrics {metrics}; launches {launches}")
+    out["card_used_gib"] = card_used_gib()
+    pids = {p.pid: f"worker {i}" for i, p in enumerate(workers.current().procs)}
+    pids[os.getpid()] = "caller"
+    by_pid = card_memory_mib()
+    out["idle_mib"] = {pids.get(pid, str(pid)): mib for pid, mib in by_pid.items()}
+    workers.shutdown()
     one, four = runs["1 shard"], runs["4 shards"]
     rel, near = shard_count_gates("sharded", one, four)
+    check(torch.equal(four[0], runs["4 shards cold"][0]) and four[1:] == runs["4 shards cold"][1:],
+          "sharded: the warm 4-shard run differs from the cold one")
     rep = runs["4 shards replicated"]
     check(torch.equal(four[0], rep[0]) and four[1:3] == rep[1:3],
           "sharded: halo solve differs from the replicated one")
@@ -1517,22 +1846,29 @@ def phase_sharded(device, num_frames=300, h=360, w=640, pan=120):
     check(torch.equal(serve[0], four[0]) and serve[1] == four[1]
           and all(math.isnan(x) for x in serve[2][:2]) and serve[2][2] == four[2][2],
           "sharded: serving mode differs")
+    out["host_round_trip_s"] = host_round_trip_s(frames)
     print(f"sharded: 4 shards against 1: crop equal, metric rel diffs {rel}, frames within "
           f"1 LSB on {near:.6f} of pixels; halo torch.equal to replicated; serving mode same "
-          f"pixels, NaN metrics")
-    return {name: {"seconds": r[3], "launches": r[4]} for name, r in runs.items()}
+          f"pixels, NaN metrics; card memory in use with the 4 workers up "
+          f"{out['card_used_gib']:.3f} GiB, by process (nvidia-smi, MiB; the workers idle) "
+          f"{out['idle_mib']}; the clip's host round trip "
+          f"{out['host_round_trip_s']:.4f} s")
+    return out
 
 
 def phase_batch(device, num_frames=120, h=360, w=640):
     """``parallel.stabilize_batch`` on two 640x360 x 120-frame clips
     (``streaming.ArrayClip`` in, ``CaptureWriter`` out: the card has no
-    codec) with devices ["cuda:0"] and ["cuda:0"] * 2 (two worker threads
-    on one card): each job's metrics and frames equal a solo ``stabilize``
-    of its clip; the wall of each run and its launches."""
+    codec) with devices ["cuda:0"] (one worker, the calling process) and
+    ["cuda:0"] * 2 (two worker processes on one card), each twice (cold,
+    warm): each job's metrics and frames equal a solo ``stabilize`` of its
+    clip; the wall of each run, its launches summed over the processes and
+    each worker's CPU seconds and peak device memory."""
     import torch
 
     from meshflow_tpu_torch import streaming
     from meshflow_tpu_torch.api import MeshFlowStabilizer
+    from meshflow_tpu_torch.parallel import workers
     from meshflow_tpu_torch.parallel.batch import BatchJob, stabilize_batch
 
     clips = [synthetic_clip(num_frames, h, w, pan=60 + 30 * i) for i in range(2)]
@@ -1545,28 +1881,42 @@ def phase_batch(device, num_frames=120, h=360, w=640):
     stab = MeshFlowStabilizer(device=device)
     lk, bmap = stream_launch_counts(stab.config, h, w, num_frames, stab.CHUNK)
     out = {}
-    for workers in (1, 2):
+    for workers_n, run in ((1, "cold"), (1, "warm"), (2, "cold"), (2, "warm")):
+        devices = [device + ":0"] * workers_n
         jobs = [BatchJob(streaming.ArrayClip(f), streaming.CaptureWriter(), 0) for f in clips]
         reset_launches()
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        results = stabilize_batch(jobs, devices=[device + ":0"] * workers)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
+        with card_utilization() as smi, cpu_use() as cpu:
+            results, wall = timed_parallel(lambda: stabilize_batch(jobs, devices=devices))
         launches = read_launches()
+        procs = processes_of(devices)
         for i, (job, metrics) in enumerate(zip(jobs, results)):
             check(metrics == solo[i][1],
-                  f"batch ({workers} workers): job {i} metrics {metrics} != solo {solo[i][1]}")
+                  f"batch ({workers_n} workers): job {i} metrics {metrics} != solo {solo[i][1]}")
             check(torch.equal(torch_frames(job.output_path.frames()), torch_frames(solo[i][0])),
-                  f"batch ({workers} workers): job {i} frames differ from the solo run's")
+                  f"batch ({workers_n} workers): job {i} frames differ from the solo run's")
         check(launches["lk_level"] == 2 * lk and launches["backward_map"] == 2 * bmap
               and launches["lk_band"] == 0,
-              f"batch ({workers} workers): launches {launches}, expected kernel A {2 * lk}, "
+              f"batch ({workers_n} workers): launches {launches}, expected kernel A {2 * lk}, "
               f"kernel B {2 * bmap}")
-        print(f"batch: 2 clips x {num_frames} frames {w}x{h} on {workers} worker(s) of one "
-              f"card: {wall:.3f} s; each job's frames and metrics equal its solo run; "
-              f"launches {launches}")
-        out[workers] = {"seconds": wall, "launches": launches}
+        print(f"batch: 2 clips x {num_frames} frames {w}x{h} on {workers_n} worker(s) of one "
+              f"card, {run}: {wall:.3f} s; {procs['processes']} process(es), worker CPU s "
+              f"{[round(x, 3) for x in procs['cpu_seconds']]}, worker peak GiB "
+              f"{[round(x, 3) for x in procs['peak_gib']]}; card busy (nvidia-smi) "
+              f"{smi.share}; CPU {cpu.line()}; each job's frames and metrics equal its solo "
+              f"run; launches {launches}")
+        out[workers_n if run == "warm" else f"{workers_n} cold"] = {
+            "seconds": wall, "launches": launches, "smi_busy": smi.share, "cpu": cpu.by_process,
+            **procs}
+        if run == "warm" and workers_n == 1:
+            def again():
+                return stabilize_batch([BatchJob(streaming.ArrayClip(f), streaming.CaptureWriter(),
+                                                 0) for f in clips], devices=devices)
+
+            prof_wall, busy = kernel_share(devices[0], again)
+            out[workers_n].update(profiled_seconds=prof_wall, kernel_seconds=busy)
+            print(f"batch: {workers_n} worker(s), profiled again: {prof_wall:.3f} s, kernels "
+                  f"{busy:.3f} s, busy share of the card {busy / prof_wall:.4f}")
+    workers.shutdown()
     return out
 
 
@@ -1875,20 +2225,36 @@ def phase_serving(device, main, main_walls, num_frames=300, h=360, w=640, pan=12
     return serving_against("640x360", device, frames, MeshFlowConfig(), main, main_walls)
 
 
+def halo_inputs(config, num_frames: int, device):
+    """Seeded inputs of the halo Jacobi: (F, V_r, V_c, 2) displacement
+    fields of `config`'s mesh (a random walk) and (F,) lambdas."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    shape = (num_frames, config.vertex_rows, config.vertex_cols, 2)
+    du = torch.from_numpy(np.cumsum(rng.normal(0, 12.0, shape), axis=0).astype(np.float32))
+    lambdas = torch.from_numpy(rng.uniform(0.5, 100.0, num_frames).astype(np.float32))
+    return du.to(device), lambdas.to(device)
+
+
 def phase_sharded_4k(device, num_frames=16, h=2160, w=3840, pan=36, solve_frames=3600):
     """The sharded path at the geometry of the JAX package's 4K smoke:
-    ``stabilize_sharded`` on 3840x2160 x 16 frames over ["cuda:0"] and
-    ["cuda:0"] * 2 (shards of 8 < omega take the replicated solve; no
-    track geometry, as in JAX) within the shard-count gates; then the halo
-    Jacobi alone over 3600 frames of seeded displacement fields of the
-    default mesh on 4 logical shards, torch.equal to the replicated
-    ``jacobi_smooth``."""
+    ``stabilize_sharded`` on 3840x2160 x 16 frames over ["cuda:0"] (the
+    calling process) and ["cuda:0"] * 2 (two worker processes, gloo;
+    shards of 8 < omega take the replicated solve; no track geometry, as in
+    JAX) within the shard-count gates, with each worker's peak device
+    memory and the card's memory in use; then the halo Jacobi alone
+    (``pipeline.smooth_sharded``) over 3600 frames of seeded displacement
+    fields of the default mesh on 4 logical shards, four processes,
+    torch.equal to the replicated ``jacobi_smooth``."""
     import numpy as np
     import torch
 
     from meshflow_tpu_torch.config import MeshFlowConfig
-    from meshflow_tpu_torch.parallel.pipeline import stabilize_sharded
-    from meshflow_tpu_torch.solver.jacobi import jacobi_smooth, jacobi_smooth_sharded
+    from meshflow_tpu_torch.parallel import workers
+    from meshflow_tpu_torch.parallel.pipeline import smooth_sharded, stabilize_sharded
+    from meshflow_tpu_torch.solver.jacobi import jacobi_smooth
     from meshflow_tpu_torch.utils import prng
 
     config = MeshFlowConfig()
@@ -1896,53 +2262,78 @@ def phase_sharded_4k(device, num_frames=16, h=2160, w=3840, pan=36, solve_frames
     key = prng.PRNGKey(SEED, device=device)
     levels = config.lk_max_level(h, w) + 1
     runs, out = {}, {}
-    for shards in (1, 2):
+    for shards, run in ((1, ""), (2, " cold"), (2, "")):
+        devices = [device + ":0"] * shards
         reset_launches()
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        res = stabilize_sharded(frames, key, config, h, w, devices=[device + ":0"] * shards)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
+        torch.cuda.reset_peak_memory_stats()
+        with card_utilization() as smi, cpu_use() as cpu:
+            res, wall = timed_parallel(lambda: stabilize_sharded(frames, key, config, h, w,
+                                                                 devices=devices))
         launches = read_launches()
+        procs = processes_of(devices)
+        used = card_used_gib()
+        peak = torch.cuda.max_memory_allocated() / (1 << 30)
         check(launches == {"lk_level": 2 * levels * shards, "lk_band": 0,
                            "backward_map": shards},
               f"sharded 4K {shards}: launches {launches}, expected kernel A "
               f"{2 * levels * shards}, kernel B {shards}")
-        runs[shards] = (res[0], res[1].tolist(), tuple(float(x) for x in res[2:]))
-        out[shards] = {"seconds": wall, "launches": launches}
+        runs[f"{shards}{run}"] = (res[0], res[1].tolist(), tuple(float(x) for x in res[2:]))
+        out[shards if not run else f"{shards}{run}"] = {
+            "seconds": wall, "launches": launches, "card_used_gib": used, "peak_gib": peak,
+            "smi_busy": smi.share, "cpu": cpu.by_process, **procs}
         del res
-        print(f"sharded 4K {shards} shard(s): {num_frames} frames {w}x{h}: {wall:.3f} s; crop "
-              f"{runs[shards][1]}; metrics {runs[shards][2]}; launches {launches}")
-    rel, near = shard_count_gates("sharded 4K", runs[1], runs[2])
+        print(f"sharded 4K {shards} shard(s){run}: {num_frames} frames {w}x{h}: {wall:.3f} s; "
+              f"{procs['processes']} process(es), backend {procs['backend']}; peak device "
+              f"memory {peak:.3f} GiB in this process, workers "
+              f"{[round(x, 3) for x in procs['peak_gib']]} GiB, card in use {used:.3f} GiB, "
+              f"busy (nvidia-smi) {smi.share}; CPU {cpu.line()}; "
+              f"crop {runs[f'{shards}{run}'][1]}; metrics {runs[f'{shards}{run}'][2]}; "
+              f"launches {launches}")
+        if shards == 1:
+            prof_wall, busy = kernel_share(devices[0], lambda: stabilize_sharded(
+                frames, key, config, h, w, devices=devices))
+            out[shards].update(profiled_seconds=prof_wall, kernel_seconds=busy)
+            print(f"sharded 4K {shards} shard(s), profiled again: {prof_wall:.3f} s, kernels "
+                  f"{busy:.3f} s, busy share of the card {busy / prof_wall:.4f}")
+    # The 2-process call taken apart: the caller's copies, rank 0's stages
+    # (the card synchronized between them), then rank 0's kernels traced
+    # while rank 1 runs untraced.
+    devices = [device + ":0"] * 2
+    stages, staged = sharded_stages(devices, frames, key, config, h, w)
+    check(torch.equal(staged[0], runs["2"][0]) and staged[1].tolist() == runs["2"][1],
+          "sharded 4K: the staged 2-shard run differs from the plain one")
+    traced, _ = sharded_stages(devices, frames, key, config, h, w, trace=True)
+    out["stages"], out["rank 0 traced"] = stages, traced
+    del staged
+    workers.shutdown()
+    print("sharded 4K 2 processes taken apart, seconds: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()) + "; rank 0 traced while rank 1 runs "
+        "untraced: " + ", ".join(f"{k} {v:.4f}" for k, v in traced.items()))
+    check(torch.equal(runs["2"][0], runs["2 cold"][0]) and runs["2"][1:] == runs["2 cold"][1:],
+          "sharded 4K: the warm 2-shard run differs from the cold one")
+    rel, near = shard_count_gates("sharded 4K", runs["1"], runs["2"])
     print(f"sharded 4K: 2 shards against 1: crop equal, metric rel diffs {rel}, frames within "
           f"1 LSB on {near:.6f} of pixels")
     del runs, frames
 
-    rng = np.random.default_rng(1)
-    shape = (solve_frames, config.vertex_rows, config.vertex_cols, 2)
-    du = torch.from_numpy(np.cumsum(rng.normal(0, 12.0, shape), axis=0).astype(np.float32))
-    lambdas = torch.from_numpy(rng.uniform(0.5, 100.0, solve_frames).astype(np.float32))
-    du, lambdas = du.to(device), lambdas.to(device)
+    du, lambdas = halo_inputs(config, solve_frames, device)
     omega, iters = config.temporal_smoothing_radius, config.optimization_num_iterations
     times = {}
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    replicated = jacobi_smooth(du, lambdas, omega, iters)
-    torch.cuda.synchronize()
-    times["replicated"] = time.perf_counter() - start
-    block = solve_frames // 4
-    start = time.perf_counter()
-    halo = jacobi_smooth_sharded([du[i * block : (i + 1) * block] for i in range(4)], lambdas,
-                                 omega, iters)
-    torch.cuda.synchronize()
-    times["halo"] = time.perf_counter() - start
-    halo = torch.cat(halo)
+    replicated, times["replicated"] = timed_parallel(
+        lambda: jacobi_smooth(du, lambdas, omega, iters))
+    devices = [device + ":0"] * 4
+    halo, times["halo cold"] = timed_parallel(
+        lambda: smooth_sharded(du, lambdas, omega, iters, devices=devices))
+    halo, times["halo"] = timed_parallel(
+        lambda: smooth_sharded(du, lambdas, omega, iters, devices=devices))
+    workers.shutdown()
     check(torch.equal(halo, replicated), "sharded 4K: the halo solve over "
           f"{solve_frames} frames differs from the replicated one by "
           f"{(halo - replicated).abs().max().item()} px")
     print(f"halo Jacobi: {solve_frames} frames of the {config.vertex_rows}x{config.vertex_cols} "
-          f"vertex grid, 4 logical shards of {block}: torch.equal to the replicated solve; "
-          f"halo {times['halo']:.3f} s, replicated {times['replicated']:.3f} s")
+          f"vertex grid, 4 logical shards of {solve_frames // 4}, four processes: torch.equal "
+          f"to the replicated solve; halo {times['halo']:.3f} s (cold {times['halo cold']:.3f}), "
+          f"replicated {times['replicated']:.3f} s")
     return dict(out, solve_s=times)
 
 
@@ -2236,7 +2627,10 @@ def ptxas_report(log: str, *match: str) -> list[str]:
     return out
 
 
-TREE_PARTS = ("lk", "bmap", "main", "probes")
+TREE_PARTS = ("lk", "bmap", "main", "probes", "batch", "sharded")
+# "batch" and "sharded" need a tree whose parallel paths run worker
+# processes (``parallel.pipeline.smooth_sharded``): asked for by name
+DEFAULT_PARTS = TREE_PARTS[:4]
 # The probe D launches that the "probes" part times, (kernel, B); probe E
 # is timed at the probe's r0
 TREE_PROBES = (("copy", 16), ("copy", 64), ("copy", 128), ("fine", 16), ("fine", 64),
@@ -2312,7 +2706,7 @@ def probe_tree_times(kernel_ms):
     return digest(*outputs)
 
 
-def tree_run(tree: Path, parts=TREE_PARTS, warm_passes: int = 3) -> int:
+def tree_run(tree: Path, parts=DEFAULT_PARTS, warm_passes: int = 3) -> int:
     """The `parts` of a tree's run, with the package imported from the
     checkout in `tree`; prints one JSON line.  "lk": kernel A on step 3's
     inputs (digest), the device ms per launch of kernel A at every
@@ -2321,9 +2715,15 @@ def tree_run(tree: Path, parts=TREE_PARTS, warm_passes: int = 3) -> int:
     (the tree's ``lk_cuda.occupancy()``).  "bmap": kernel B's outputs at
     every BMAP_CASES case (digest), device ms and host-clock ms per call at
     the timed cases.  "main": the 640x360 main path's output digest, crop,
-    metrics and wall times.  "probes": `probe_tree_times`.  Always the
-    ptxas lines of the tree's LK, backward-map and D and E probe kernels
-    (when its build keeps them)."""
+    metrics and wall times.  "probes": `probe_tree_times`.  "batch":
+    ``stabilize_batch`` of two 640x360 x 120-frame clips on two worker
+    processes of the card, a cold and `warm_passes` warm walls, and a
+    digest of the last call's frames and metrics.  "sharded":
+    ``stabilize_sharded`` on 3840x2160 x 16 frames over two worker
+    processes of the card and the halo Jacobi over 3600 frames on four
+    (``smooth_sharded``), a cold and `warm_passes` warm walls each, and a
+    digest of their outputs.  Always the ptxas lines of the tree's LK,
+    backward-map and D and E probe kernels (when its build keeps them)."""
     sys.path.insert(0, str(tree))
     import torch
 
@@ -2360,6 +2760,44 @@ def tree_run(tree: Path, parts=TREE_PARTS, warm_passes: int = 3) -> int:
             kernel_ms[f"B {name}"], result["host_ms"][f"B {name}"] = bmap_times("cuda", name)
     if "probes" in parts:
         result["probes"] = probe_tree_times(kernel_ms)
+    if "batch" in parts:
+        from meshflow_tpu_torch import streaming
+        from meshflow_tpu_torch.parallel import workers
+        from meshflow_tpu_torch.parallel.batch import BatchJob, stabilize_batch
+
+        clips = [synthetic_clip(120, 360, 640, pan=60 + 30 * i) for i in range(2)]
+        walls = result.setdefault("batch_s", [])
+        for _ in range(1 + warm_passes):
+            jobs = [BatchJob(streaming.ArrayClip(f), streaming.CaptureWriter(), 0) for f in clips]
+            metrics, wall = timed_parallel(lambda: stabilize_batch(jobs, devices=["cuda:0"] * 2))
+            walls.append(wall)
+        workers.shutdown()
+        result["batch"] = digest(*(torch.from_numpy(j.output_path.frames()) for j in jobs),
+                                 torch.tensor(metrics))
+    if "sharded" in parts:
+        from meshflow_tpu_torch.config import MeshFlowConfig
+        from meshflow_tpu_torch.parallel import workers
+        from meshflow_tpu_torch.parallel.pipeline import smooth_sharded, stabilize_sharded
+        from meshflow_tpu_torch.utils import prng
+
+        config = MeshFlowConfig()
+        frames = torch.from_numpy(synthetic_clip(16, 2160, 3840, pan=36)).to("cuda")
+        key = prng.PRNGKey(SEED, device="cuda")
+        du, lambdas = halo_inputs(config, 3600, "cuda")
+        omega, iters = config.temporal_smoothing_radius, config.optimization_num_iterations
+        walls, outputs = result.setdefault("sharded_s", {}), []
+        for name, run in (
+            ("4K x 16, 2 processes", lambda: stabilize_sharded(
+                frames, key, config, 2160, 3840, devices=["cuda:0"] * 2)),
+            ("halo Jacobi 3600 frames, 4 processes", lambda: (smooth_sharded(
+                du, lambdas, omega, iters, devices=["cuda:0"] * 4),)),
+        ):
+            for _ in range(1 + warm_passes):
+                got, wall = timed_parallel(run)
+                walls.setdefault(name, []).append(wall)
+            outputs += list(got[:2])
+            workers.shutdown()
+        result["sharded"] = digest(*outputs)
     if "main" in parts:
         frames = torch.from_numpy(synthetic_clip(300, 360, 640, pan=120)).to("cuda")
         stab = MeshFlowStabilizer(device="cuda")
@@ -2378,7 +2816,7 @@ def tree_run(tree: Path, parts=TREE_PARTS, warm_passes: int = 3) -> int:
     return 0
 
 
-def compare_trees(other: Path, here: Path, parts=TREE_PARTS) -> int:
+def compare_trees(other: Path, here: Path, parts=DEFAULT_PARTS) -> int:
     """`tree_run` of `other` and of this checkout, each in its own process,
     in the order other, this, this, other; both must give the same bytes."""
     runs = []
@@ -2391,19 +2829,25 @@ def compare_trees(other: Path, here: Path, parts=TREE_PARTS) -> int:
         sys.stdout.write(res.stdout)
         check(res.returncode == 0, f"the run of {tree} exited {res.returncode}")
         runs.append(dict(json.loads(res.stdout.strip().splitlines()[-1]), tree=str(tree)))
-    for key in ("kernel_a", "bmap", "main_path", "probes"):
+    for key in ("kernel_a", "bmap", "main_path", "probes", "batch", "sharded"):
         if key in runs[0]:
             check(len({r[key] for r in runs}) == 1, f"the trees' {key} outputs differ")
-    warm, times = {}, {"kernel_ms": {}, "host_ms": {}}
+    warm, times, parallel = {}, {"kernel_ms": {}, "host_ms": {}}, {}
     for r in runs:
         warm.setdefault(r["tree"], []).extend(r.get("warm_s", []))
+        for name, walls in r.get("sharded_s", {}).items():
+            parallel.setdefault(r["tree"], {}).setdefault(name, []).append(walls)
+        if "batch_s" in r:
+            parallel.setdefault(r["tree"], {}).setdefault("batch, 2 processes", []).append(
+                r["batch_s"])
         for kind, per_tree in times.items():
             for name, ms in r[kind].items():
                 per_tree.setdefault(r["tree"], {}).setdefault(name, []).append(ms)
     print(json.dumps({"same_outputs": True, "warm_s": warm,
                       "median_warm_s": {t: sorted(v)[len(v) // 2] for t, v in warm.items() if v},
                       "kernel_ms_per_launch": times["kernel_ms"],
-                      "host_ms_per_call": times["host_ms"]}))
+                      "host_ms_per_call": times["host_ms"],
+                      "parallel_cold_and_warm_s": parallel}))
     return 0
 
 
@@ -2419,9 +2863,9 @@ def main() -> int:
     parser.add_argument("--compare", metavar="DIR", type=Path,
                         help="time the checkout in DIR against this one (see above)")
     parser.add_argument("--tree", metavar="DIR", type=Path, help=argparse.SUPPRESS)
-    parser.add_argument("--parts", default=",".join(TREE_PARTS),
+    parser.add_argument("--parts", default=",".join(DEFAULT_PARTS),
                         help="with --compare or --tree: the parts to run, of "
-                             f"{', '.join(TREE_PARTS)} (default: all)")
+                             f"{', '.join(TREE_PARTS)} (default: {', '.join(DEFAULT_PARTS)})")
     args = parser.parse_args()
     parts = tuple(args.parts.split(","))
     if not set(parts) <= set(TREE_PARTS):

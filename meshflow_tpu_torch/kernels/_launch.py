@@ -5,21 +5,19 @@ of its launches."""
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from meshflow_tpu_torch.kernels import _build
 
 
-_COUNT_LOCK = threading.Lock()
-
-
 def count(wrapper) -> None:
-    """Add one to `wrapper.launches` where the wrapper launches its kernel;
-    under a lock, since batch workers launch from threads of their own."""
-    with _COUNT_LOCK:
-        wrapper.launches += 1
+    """Add one to `wrapper.launches` where the wrapper launches its kernel.
+    No lock: only a process's calling thread launches (the stream's decode
+    and encode threads launch nothing), and the batch's workers and the
+    sharded path's shards are processes of their own, whose counts the
+    parent adds in as their answers arrive (``parallel/workers.py``)."""
+    wrapper.launches += 1
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

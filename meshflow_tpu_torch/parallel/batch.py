@@ -1,22 +1,19 @@
 """Multi-clip batch parallelism: the port of ``meshflow_tpu/parallel/batch.py``.
 
-Independent clips share nothing, so they fan out whole over devices: a
-thread pool with one worker per device, each job taking a device from a
-queue and running its own ``MeshFlowStabilizer(device=d, seed=seed)``
-with d the thread's current device, as the JAX package sets its default
-device per worker.  A device may repeat in the list, so one card can run
-several workers.  Each job gives what a solo ``stabilize`` of its clip
-gives.
+Independent clips share nothing, so they fan out whole over devices: one
+worker process a device entry (``workers.pool``; an entry may repeat, so
+one card can run several workers), each job taken by whichever worker is
+free and run as its own ``MeshFlowStabilizer(config, seed=seed,
+device=the worker's device)``, as the JAX package pins a device per
+worker.  Each job gives what a solo ``stabilize`` of its clip gives, and
+the results come back in job order.  One worker runs in the calling
+process.
 
-Threads have not sped a batch up on H100s: two workers on one card took
-1.9 times the wall of one worker running both clips in turn, and four
-workers on four cards 4.5 times.  The host work a clip grows with the
-number of workers (the process's CPU time a clip 3.7 and 12.9 times one
-worker's) while the card is idle most of the time (in a profiled run,
-kernels running 23% of the wall with one worker, 16% with two), so the
-workers contend on the host; which lock is not yet traced
-(``scripts/torch_multicard.py`` measures it).  Of the layouts measured,
-one worker (``devices=[one card]``) runs a batch fastest.
+A job's input and output are paths, which travel as they are, or the
+objects the stream takes: an ``streaming.ArrayClip``'s frames go to the
+worker through shared memory, and a ``streaming.CaptureWriter`` in the
+job is filled with the frames the worker captured.  The configuration
+and ``MeshFlowStabilizer.CHUNK`` are the caller's, passed to the worker.
 
 CLI: python -m meshflow_tpu_torch.parallel.batch manifest.json
   manifest: [{"input": ..., "output": ..., "variant": "original"}, ...]
@@ -25,16 +22,19 @@ CLI: python -m meshflow_tpu_torch.parallel.batch manifest.json
 
 from __future__ import annotations
 
-import concurrent.futures
 import contextlib
-import queue
+import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from meshflow_tpu_torch import config as cfg
+from meshflow_tpu_torch import streaming
 from meshflow_tpu_torch.config import MeshFlowConfig
+from meshflow_tpu_torch.parallel import device_list, workers
 
 
 @dataclass(frozen=True)
@@ -47,6 +47,50 @@ class BatchJob:
     adaptive_weights_definition: int = cfg.ADAPTIVE_WEIGHTS_DEFINITION_ORIGINAL
 
 
+def _run(job: BatchJob, config, seed, device, chunk):
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+
+    current = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+    with current:
+        stabilizer = MeshFlowStabilizer(config=config, seed=seed, device=device)
+        stabilizer.CHUNK = chunk
+        return stabilizer.stabilize(job.input_path, job.output_path,
+                                    job.adaptive_weights_definition)
+
+
+def _shared(array) -> torch.Tensor:
+    """uint8 `array` copied into shared memory by numpy, on one thread (a
+    torch copy would run on the caller's intra-op threads)."""
+    out = workers.shared_empty(array.shape, torch.uint8)
+    np.copyto(out.numpy(), np.asarray(array))
+    return out
+
+
+def _for_worker(job: BatchJob) -> BatchJob:
+    """The job as a worker takes it: an ArrayClip as (frames in shared
+    memory, fps, path), a CaptureWriter as None (captured in the worker)."""
+    clip, output = job.input_path, job.output_path
+    if isinstance(clip, streaming.ArrayClip):
+        clip = (_shared(clip.frames), clip.fps, clip.path)
+    if isinstance(output, streaming.CaptureWriter):
+        output = None
+    elif not isinstance(output, (str, os.PathLike)):
+        raise TypeError(f"a batch worker writes to a path or a CaptureWriter, not {output!r}")
+    return dataclasses.replace(job, input_path=clip, output_path=output)
+
+
+def _run_in_worker(job: BatchJob, config, seed, chunk):
+    """A worker's job: (metrics, the captured frames in shared memory or
+    None)."""
+    clip = job.input_path
+    if isinstance(clip, tuple):
+        clip = streaming.ArrayClip(clip[0].numpy(), fps=clip[1], path=clip[2])
+    writer = streaming.CaptureWriter() if job.output_path is None else job.output_path
+    metrics = _run(dataclasses.replace(job, input_path=clip, output_path=writer), config, seed,
+                   workers.device(), chunk)
+    return metrics, (_shared(writer.frames()) if job.output_path is None else None)
+
+
 def stabilize_batch(
     jobs: Sequence[BatchJob],
     config: Optional[MeshFlowConfig] = None,
@@ -54,33 +98,28 @@ def stabilize_batch(
     seed: int = 0,
 ) -> Tuple[Tuple[float, float, float], ...]:
     """Stabilize independent clips concurrently across `devices` (default:
-    every CUDA device); returns each job's (cropping_ratio,
-    distortion_score, stability_score) in job order."""
+    every CUDA device), one worker process a device; returns each job's
+    (cropping_ratio, distortion_score, stability_score) in job order.
+
+    With two or more entries and jobs the worker processes
+    (``workers.pool``, one an entry, even where there are fewer jobs) stay
+    up after the call, for the next call with the same list; a call with
+    another list, or ``workers.shutdown()``, ends them.  Between calls each
+    holds its CUDA context on its card and no other device memory."""
     from meshflow_tpu_torch.api import MeshFlowStabilizer
-    from meshflow_tpu_torch.parallel import cuda_devices
 
-    devices = list(cuda_devices() if devices is None else devices)
+    devices = device_list(devices)
+    config = MeshFlowConfig() if config is None else config
+    chunk = MeshFlowStabilizer.CHUNK
     num_workers = max(1, min(len(devices), len(jobs)))
-    device_pool: "queue.Queue" = queue.Queue()
-    for d in devices[:num_workers]:
-        device_pool.put(d)
-
-    def run(job: BatchJob):
-        device = torch.device(device_pool.get())
-        current = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
-        try:
-            with current:
-                stabilizer = MeshFlowStabilizer(config=config, seed=seed, device=device)
-                return stabilizer.stabilize(
-                    job.input_path, job.output_path, job.adaptive_weights_definition
-                )
-        finally:
-            device_pool.put(device)
-
     if num_workers == 1:
-        return tuple(run(job) for job in jobs)
-    with concurrent.futures.ThreadPoolExecutor(num_workers) as pool:
-        return tuple(pool.map(run, jobs))
+        return tuple(_run(job, config, seed, devices[0], chunk) for job in jobs)
+    pool = workers.pool(devices)
+    answers = pool.map(_run_in_worker, [(_for_worker(job), config, seed, chunk) for job in jobs])
+    for job, (_, frames) in zip(jobs, answers):
+        if frames is not None:
+            job.output_path.write(frames.numpy())
+    return tuple(metrics for metrics, _ in answers)
 
 
 def main(argv=None) -> int:

@@ -1,19 +1,27 @@
 """Frame-sharded stabilization: the port of
 ``meshflow_tpu/parallel/pipeline.py``.
 
-The JAX package runs one program over a 1-D device mesh (``shard_map`` in
-one process).  The port runs the same steps in one process over a list
-of torch devices, one per shard, where a device may repeat; each
-collective is an explicit, ordered tensor move:
+The JAX package runs one ``shard_map``ped, jitted step over a 1-D device
+mesh.  The port runs the same step, ``shard_step``, once a rank: one
+process a device entry (``workers.pool``), with a ``torch.distributed``
+group over them (NCCL when the entries are distinct cards, gloo when they
+repeat or lie on the CPU), and its collectives through
+``workers.Collectives``:
 
-* ppermute: a neighbour's slice ``.to(device)`` (the one-frame halo that
-  lets every shard match its boundary pair, and the halo Jacobi's
-  omega-frame halos);
-* all_gather: a ``torch.cat`` of the shards' tensors (the shard totals of
-  the distributed prefix sum, the homographies for the adaptive weights,
-  the solved state for the stability score);
-* pmax / pmin / pmean: a reduction over the stacked per-shard values (the
-  crop rectangle, the metrics).
+* ppermute on the ring: the one-frame halo that lets every shard match
+  its boundary pair, and the previous shard's last displacement;
+* a neighbour exchange (``halo``): the halo Jacobi's omega-frame halos,
+  both directions in one batch a sweep (``solver/jacobi.jacobi_smooth_halo``);
+* all_gather: the shard totals of the distributed prefix sum, the
+  homographies for the adaptive weights, the solved state for the
+  stability score, the shards' crops (intersected: JAX's pmax / pmin) and
+  the metrics (JAX's pmean / pmin, reduced in rank order on every rank,
+  so that no bit depends on the backend's reduction order).
+
+The parent puts the clip once into shared host memory; each rank uploads
+its block and writes its cropped block into a shared host output, which
+the parent returns on the first entry's device.  One entry runs in the
+calling process, with no group.
 
 As in the JAX package, the sharded path tracks BGR frames at full
 resolution (no track geometry, no gray planes), and frame pairs draw
@@ -28,13 +36,116 @@ from meshflow_tpu_torch.config import MeshFlowConfig
 from meshflow_tpu_torch.kernels.fast import Keypoints
 from meshflow_tpu_torch.metrics.quality import cropping_and_distortion, stability_score
 from meshflow_tpu_torch.motion.pipeline import pair_velocities, prepare_frames
-from meshflow_tpu_torch.parallel import cuda_devices
-from meshflow_tpu_torch.render.stabilize import crop_frames, render_stabilized
-from meshflow_tpu_torch.solver.jacobi import jacobi_smooth, jacobi_smooth_sharded
+from meshflow_tpu_torch.parallel import device_list, workers
+from meshflow_tpu_torch.render.stabilize import crop_frames, intersect_crops, render_stabilized
+from meshflow_tpu_torch.solver.jacobi import jacobi_smooth, jacobi_smooth_halo
 from meshflow_tpu_torch.solver.weights import adaptive_weights
 from meshflow_tpu_torch.utils import grid, prng
 
 SOLVER_MODES = ("halo", "replicated")
+
+
+def shard_step(frames_local, key, config: MeshFlowConfig, frame_height: int, frame_width: int,
+               num_frames: int, adaptive_weights_definition: int, solver_mode: str,
+               comm: workers.Collectives):
+    """One rank's part of the sharded step (the JAX package's ``step``):
+    frames_local its (B, H, W, 3) uint8 block on its device.  Returns
+    (cropped block, crop (4,), cropping_ratio, distortion_score,
+    stability_score), the last four the same on every rank."""
+    rank, num_shards, device = comm.rank, comm.world, frames_local.device
+    block = frames_local.shape[0]
+    h, w = frame_height, frame_width
+
+    # --- halo: receive the next shard's first frame -----------------------
+    frames_ext = torch.cat([frames_local, comm.ppermute(frames_local[:1], 1)])
+    keypoints, _ = prepare_frames(frames_ext, config)
+
+    # --- local pair motion (B pairs; the global wrap pair is masked) ------
+    vel, homo, _ = pair_velocities(keypoints, frames_ext, key, rank * block, config, h, w)
+    valid = rank * block + torch.arange(block, device=device) < num_frames - 1
+    vel = torch.where(valid[:, None, None, None], vel, torch.zeros_like(vel))
+    eye = torch.eye(3, dtype=homo.dtype, device=device).expand_as(homo)
+    homo = torch.where(valid[:, None, None], homo, eye)
+
+    # --- distributed displacement prefix sum ------------------------------
+    local_cum = torch.cumsum(vel, dim=0)
+    totals = comm.all_gather(local_cum[-1])
+    before = (torch.arange(num_shards, device=device) < rank)[:, None, None, None]
+    prefix = torch.where(before, totals, torch.zeros_like(totals)).sum(0)
+    disp_pairs = local_cum + prefix  # displacements of frames t+1
+
+    # --- adaptive weights need every pair homography (tiny) ---------------
+    homos_full = comm.all_gather(homo).reshape(num_frames, 3, 3)
+    lambdas = adaptive_weights(homos_full, w, h, adaptive_weights_definition)
+
+    omega, iterations = config.temporal_smoothing_radius, config.optimization_num_iterations
+    if solver_mode == "halo":
+        # Shift the displacements one frame right across shards: frame iB
+        # takes the left neighbour's last prefix (zero on the first shard).
+        prev_tail = comm.ppermute(disp_pairs[-1:], -1)
+        if rank == 0:
+            prev_tail = torch.zeros_like(prev_tail)
+        du_local = torch.cat([prev_tail, disp_pairs[:-1]])
+        ds_local = jacobi_smooth_halo(du_local, lambdas, omega, iterations, comm)
+        stab_full = comm.all_gather(ds_local).flatten(0, 1)
+    else:
+        # replicate the tiny temporal state and solve it on every rank
+        disp_tail = comm.all_gather(disp_pairs).flatten(0, 1)
+        disp_full = torch.cat([torch.zeros_like(disp_tail[:1]), disp_tail[: num_frames - 1]])
+        stab_full = jacobi_smooth(disp_full, lambdas, omega, iterations)
+        du_local = disp_full[rank * block : (rank + 1) * block]
+        ds_local = stab_full[rank * block : (rank + 1) * block]
+
+    # --- render; the crop intersects the shards' crops --------------------
+    unstab_grid = grid.vertex_grid(config, h, w, device=device)
+    stabilized, crop_local = render_stabilized(frames_local, du_local, ds_local, unstab_grid,
+                                               config, h, w)
+    crop = intersect_crops(comm.all_gather(crop_local))
+    cropped = crop_frames(stabilized, crop, h, w)
+    del stabilized
+
+    # --- metrics: the mean of the shard means, the min of the mins -------
+    if config.compute_metrics:
+        ratios, distortions = cropping_and_distortion(
+            Keypoints(*(a[:block] for a in keypoints)), frames_local, cropped,
+            prng.fold_in(key, 10_000), rank * block, config, h, w,
+        )
+        cropping_ratio = comm.all_gather(ratios.mean()).mean()
+        distortion_score = comm.all_gather(distortions.amin()).amin()
+    else:
+        cropping_ratio = distortion_score = torch.tensor(float("nan"), device=device)
+
+    # stability from the gathered solve (the same on every rank)
+    return cropped, crop, cropping_ratio, distortion_score, stability_score(stab_full)
+
+
+def _over_ranks(devices, rank_fn, x, *args):
+    """rank_fn(rank, world, x, out, *args) on one worker process a device,
+    over their group, with `x` and an output of its shape and dtype in
+    shared host memory (the pool's buffers, kept for the next call of this
+    shape); returns (a copy of out on the first device, every rank's
+    result)."""
+    pool = workers.pool(devices)
+    pool.init_group()
+    shared = pool.shared("in", x.shape, x.dtype)
+    shared.copy_(x)
+    out = pool.shared("out", x.shape, x.dtype)
+    world = len(devices)
+    results = pool.each(rank_fn, [(r, world, shared, out) + args for r in range(world)])
+    return out.to(devices[0], copy=True), results
+
+
+def _shard_rank(rank, world, frames, out, key, config, h, w, awd, solver_mode):
+    """A worker's rank: upload its block of the shared clip, run
+    ``shard_step``, write its cropped block into the shared output; returns
+    the rest on the host."""
+    device = workers.device()
+    block = frames.shape[0] // world
+    rows = slice(rank * block, (rank + 1) * block)
+    got = shard_step(frames[rows].to(device), key.to(device), config, h, w, frames.shape[0],
+                     awd, solver_mode, workers.Collectives(rank, world, device))
+    out[rows].copy_(got[0])
+    return tuple(x.cpu() for x in got[1:])
 
 
 def stabilize_sharded(
@@ -47,116 +158,69 @@ def stabilize_sharded(
     adaptive_weights_definition: int = 0,
     solver_mode: str = "halo",
 ):
-    """Stabilize a clip with its frames sharded over `devices`.
+    """Stabilize a clip with its frames sharded over `devices`, one process
+    a shard.
 
     frames: (F, H, W, 3) uint8 BGR on any device, F divisible by the
     number of shards; key: a port key (``utils.prng.PRNGKey``); devices:
-    one torch device per shard (default: every CUDA device).  Returns
-    (cropped (F, H, W, 3) uint8, crop (4,), cropping_ratio,
-    distortion_score, stability_score), all on the first shard's device.
+    one torch device per shard, which may repeat (default: every CUDA
+    device).  Returns (cropped (F, H, W, 3) uint8, crop (4,),
+    cropping_ratio, distortion_score, stability_score), all on the first
+    shard's device.
 
     solver_mode: "halo" keeps the (F, V, 2) solver state sharded and
     exchanges an omega-frame halo per Jacobi sweep, bit-identical to
     "replicated", which gathers the state and solves it whole; shards
     shorter than omega take "replicated".  In serving mode
     (config.compute_metrics off) the cropping ratio and distortion are NaN.
+
+    With two or more entries the worker processes (``workers.pool``) stay
+    up after the call, for the next call with the same list, together
+    with two host buffers of the clip's size in shared memory; a call with
+    another list, or ``workers.shutdown()``, ends them.  Between calls each
+    holds its CUDA context on its card and no other device memory.
     """
     if solver_mode not in SOLVER_MODES:
         raise ValueError(f"solver_mode {solver_mode!r}: expected one of {SOLVER_MODES}")
-    devices = [torch.device(d) for d in (cuda_devices() if devices is None else devices)]
-    num_shards = len(devices)
-    num_frames = frames.shape[0]
-    if num_shards == 0 or num_frames % num_shards:
+    devices = device_list(devices)
+    num_shards, num_frames = len(devices), frames.shape[0]
+    if num_frames % num_shards:
         raise ValueError(f"{num_frames} frames do not split over {num_shards} shards")
-    block = num_frames // num_shards
-    omega = config.temporal_smoothing_radius
-    if block < omega:
-        # the halo reaches one neighbour only
-        solver_mode = "replicated"
-    h, w = frame_height, frame_width
+    if num_frames // num_shards < config.temporal_smoothing_radius:
+        solver_mode = "replicated"  # the halo reaches one neighbour only
     first = devices[0]
-    frames_local = [frames[i * block : (i + 1) * block].to(d) for i, d in enumerate(devices)]
-    keys = [key.to(d) for d in devices]
+    if num_shards == 1:
+        return shard_step(frames.to(first), key.to(first), config, frame_height, frame_width,
+                          num_frames, adaptive_weights_definition, solver_mode,
+                          workers.Collectives(0, 1, first))
+    out, results = _over_ranks(devices, _shard_rank, frames, key.cpu(), config, frame_height,
+                               frame_width, adaptive_weights_definition, solver_mode)
+    return (out,) + tuple(x.to(first) for x in results[0])
 
-    # --- halo: each shard receives the next shard's first frame ---------
-    keypoints, vel, homo = [], [], []
-    for i, d in enumerate(devices):
-        halo = frames_local[(i + 1) % num_shards][:1].to(d)
-        frames_ext = torch.cat([frames_local[i], halo])
-        kps, _ = prepare_frames(frames_ext, config)
-        keypoints.append(kps)
-        # --- local pair motion (B pairs; the global wrap pair is masked) --
-        v, hm, _ = pair_velocities(kps, frames_ext, keys[i], i * block, config, h, w)
-        global_pair = i * block + torch.arange(block, device=d)
-        valid = global_pair < num_frames - 1
-        v = torch.where(valid[:, None, None, None], v, torch.zeros_like(v))
-        eye = torch.eye(3, dtype=hm.dtype, device=d).expand_as(hm)
-        hm = torch.where(valid[:, None, None], hm, eye)
-        vel.append(v)
-        homo.append(hm)
 
-    # --- distributed displacement prefix sum ------------------------------
-    local_cum = [torch.cumsum(v, dim=0) for v in vel]
-    disp_pairs = []
-    for i, d in enumerate(devices):
-        totals = torch.stack([c[-1].to(d) for c in local_cum])  # all_gather
-        before = (torch.arange(num_shards, device=d) < i)[:, None, None, None]
-        prefix = torch.where(before, totals, torch.zeros_like(totals)).sum(0)
-        disp_pairs.append(local_cum[i] + prefix)  # displacements of frames t+1
+def _smooth_rank(rank, world, b, out, lambdas, omega, iterations):
+    device = workers.device()
+    block = b.shape[0] // world
+    rows = slice(rank * block, (rank + 1) * block)
+    out[rows].copy_(jacobi_smooth_halo(b[rows].to(device), lambdas.to(device), omega,
+                                       iterations, workers.Collectives(rank, world, device)))
 
-    # --- adaptive weights need every pair homography (tiny) ---------------
-    homos_full = torch.cat([hm.to(first) for hm in homo])  # all_gather
-    lambdas = adaptive_weights(homos_full, w, h, adaptive_weights_definition)
 
-    if solver_mode == "halo":
-        # Shift the displacements one frame right across shards: frame iB
-        # takes the left neighbour's last prefix (zero on the first shard).
-        du_local = []
-        for i, d in enumerate(devices):
-            prev_tail = (disp_pairs[i - 1][-1:].to(d) if i > 0
-                         else torch.zeros_like(disp_pairs[i][-1:]))
-            du_local.append(torch.cat([prev_tail, disp_pairs[i][:-1]]))
-        ds_local = jacobi_smooth_sharded(du_local, lambdas, omega,
-                                         config.optimization_num_iterations)
-        stab_full = torch.cat([x.to(first) for x in ds_local])  # all_gather
-    else:
-        # replicate the tiny temporal state and solve it on each device
-        disp_tail = torch.cat([x.to(first) for x in disp_pairs])  # all_gather
-        disp_full = torch.cat([torch.zeros_like(disp_tail[:1]), disp_tail[: num_frames - 1]])
-        stab_full = jacobi_smooth(disp_full, lambdas, omega, config.optimization_num_iterations)
-        du_local = [disp_full[i * block : (i + 1) * block].to(d) for i, d in enumerate(devices)]
-        ds_local = [stab_full[i * block : (i + 1) * block].to(d) for i, d in enumerate(devices)]
-
-    # --- render; the crop is the pmax / pmin of the shards' crops ---------
-    stabilized, crops = [], []
-    for i, d in enumerate(devices):
-        unstab_grid = grid.vertex_grid(config, h, w, device=d)
-        s, c = render_stabilized(frames_local[i], du_local[i], ds_local[i], unstab_grid,
-                                 config, h, w)
-        stabilized.append(s)
-        crops.append(c.to(first))
-    crops = torch.stack(crops)
-    crop = torch.stack([crops[:, 0].amax(), crops[:, 1].amax(), crops[:, 2].amin(),
-                        crops[:, 3].amin()])
-    cropped = [crop_frames(s, crop.to(s.device), h, w) for s in stabilized]
-    del stabilized
-
-    # --- metrics: the mean of the shard means, the min of the mins -------
-    if config.compute_metrics:
-        means, mins = [], []
-        for i, d in enumerate(devices):
-            ratios, distortions = cropping_and_distortion(
-                Keypoints(*(a[:block] for a in keypoints[i])), frames_local[i], cropped[i],
-                prng.fold_in(keys[i], 10_000), i * block, config, h, w,
-            )
-            means.append(ratios.mean().to(first))
-            mins.append(distortions.amin().to(first))
-        cropping_ratio = torch.stack(means).mean()
-        distortion_score = torch.stack(mins).amin()
-    else:
-        cropping_ratio = distortion_score = torch.tensor(float("nan"), device=first)
-
-    # stability from the gathered solve (the same on every shard)
-    stability = stability_score(stab_full)
-    cropped = torch.cat([c.to(first) for c in cropped])  # all_gather
-    return cropped, crop, cropping_ratio, distortion_score, stability
+def smooth_sharded(b: torch.Tensor, lambdas: torch.Tensor, omega: int, iterations: int,
+                   devices=None) -> torch.Tensor:
+    """The halo Jacobi alone, the (F, ...) state `b` split by frames over
+    `devices`, one process a shard: ``jacobi_smooth_halo`` on every rank.
+    Returns the whole solve on the first device, bit for bit
+    ``jacobi_smooth(b, lambdas, omega, iterations)``."""
+    devices = device_list(devices)
+    num_shards = len(devices)
+    if b.shape[0] % num_shards:
+        raise ValueError(f"{b.shape[0]} frames do not split over {num_shards} shards")
+    if num_shards > 1 and b.shape[0] // num_shards < omega:
+        raise ValueError(f"halo solve needs shards of >= omega={omega} frames, "
+                         f"got {b.shape[0] // num_shards}")
+    if num_shards == 1:
+        first = devices[0]
+        return jacobi_smooth_halo(b.to(first), lambdas.to(first), omega, iterations,
+                                  workers.Collectives(0, 1, first))
+    return _over_ranks(devices, _smooth_rank, b, lambdas.cpu(), omega, iterations)[0]

@@ -89,38 +89,34 @@ def _band_matvec_halo(
     return out
 
 
-def jacobi_smooth_sharded(
-    b_locals, lambdas: torch.Tensor, omega: int, iterations: int
-) -> list:
-    """jacobi_smooth with the (F, V, 2) state sharded over the frame axis.
+def jacobi_smooth_halo(
+    b_local: torch.Tensor, lambdas: torch.Tensor, omega: int, iterations: int, comm
+) -> torch.Tensor:
+    """One rank's jacobi_smooth with the (F, V, 2) state sharded over the
+    frame axis (the JAX package's ``jacobi_smooth_sharded``).
 
-    b_locals: the shards' (B, ...) blocks of the unstabilized
-    displacements in frame order, each on its shard's device (devices may
-    repeat); lambdas: the full (F,) adaptive weights.  Per sweep each shard
-    takes omega frames from each neighbour (the halo: a `.to` of the
-    neighbour's edge frames, the JAX package's ppermute) instead of the
-    whole state.  Needs B >= omega when there is more than one shard.
-    Returns the stabilized blocks, equal bit for bit to the blocks of
-    jacobi_smooth on the concatenated state."""
-    n = len(b_locals)
-    block = b_locals[0].shape[0]
-    if n > 1 and block < omega:
+    b_local: this rank's (B, ...) block of the unstabilized displacements
+    on its device; lambdas: the full (F,) adaptive weights; comm: the
+    rank's collectives (``parallel.workers.Collectives``: rank, world,
+    ``halo``).  Per sweep the rank sends its first omega frames left and
+    its last omega right, and takes its neighbours' in one exchange,
+    instead of the whole state; the first rank has no left neighbour and
+    the last no right one, where the unsharded stencil's zero padding
+    stands.  Needs B >= omega when there is more than
+    one rank.  Returns the rank's stabilized block, equal bit for bit to
+    its block of jacobi_smooth on the whole state."""
+    rank, world = comm.rank, comm.world
+    block = b_local.shape[0]
+    if world > 1 and block < omega:
         raise ValueError(f"halo solve needs shards of >= omega={omega} frames, got {block}")
-    inv_diag = 1.0 / on_diagonal(lambdas, omega)
-    extra = (1,) * (b_locals[0].dim() - 1)
-    bands, lams, inv_ds = [], [], []
-    for i, b in enumerate(b_locals):
-        sl = slice(i * block, (i + 1) * block)
-        bands.append(gaussian_band(omega, b.device))
-        lams.append(lambdas[sl].to(b.device).reshape((-1,) + extra))
-        inv_ds.append(inv_diag[sl].to(b.device).reshape((-1,) + extra))
-    xs = list(b_locals)
+    sl = slice(rank * block, (rank + 1) * block)
+    extra = (1,) * (b_local.dim() - 1)
+    band = gaussian_band(omega, b_local.device)
+    lam = lambdas[sl].reshape((-1,) + extra)
+    inv_d = (1.0 / on_diagonal(lambdas, omega))[sl].reshape((-1,) + extra)
+    x = b_local
     for _ in range(iterations):
-        new = []
-        for i, x in enumerate(xs):
-            left = xs[i - 1][-omega:].to(x.device) if i > 0 else None
-            right = xs[i + 1][:omega].to(x.device) if i < n - 1 else None
-            offdiag_x = -2.0 * lams[i] * _band_matvec_halo(x, left, right, bands[i], omega)
-            new.append(inv_ds[i] * (b_locals[i] - offdiag_x))
-        xs = new
-    return xs
+        left, right = comm.halo(x[:omega], x[-omega:])
+        offdiag_x = -2.0 * lam * _band_matvec_halo(x, left, right, band, omega)
+        x = inv_d * (b_local - offdiag_x)
+    return x

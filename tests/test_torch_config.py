@@ -136,7 +136,7 @@ def test_port_imports_without_jax():
         "from meshflow_tpu_torch import api, interop\n"
         "from meshflow_tpu_torch.kernels import lk_cuda, bmap_cuda, lk_band_cuda, lk_fetch\n"
         "from meshflow_tpu_torch import online, cli, streaming, checkpoint\n"
-        "from meshflow_tpu_torch.parallel import batch, pipeline\n"
+        "from meshflow_tpu_torch.parallel import batch, pipeline, workers\n"
         "from meshflow_tpu_torch.motion import features, pipeline as motion_pipeline\n"
         "from meshflow_tpu_torch.render import stabilize\n"
         "from meshflow_tpu_torch.solver import jacobi\n"

@@ -2,8 +2,11 @@
 (``meshflow_tpu_torch/parallel/``) against the JAX package's
 ``meshflow_tpu/parallel/`` on the CPU.
 
-The port runs its shards over a list of torch devices in one process;
-here every shard is the CPU.  Tolerances:
+The port runs a shard or a batch worker in a spawned process of its own
+for each entry of its device list (here every entry is the CPU, and the
+sharded path's group is gloo); one entry runs in the test's process.
+Every test that spawns has a time limit of its own (``time_limit``), so
+that a hung child fails one test.  Tolerances:
 
 * the halo Jacobi solve adds its taps in the replicated solve's order, so
   it is ``torch.equal`` to it, alone and inside the pipeline;
@@ -21,7 +24,11 @@ here every shard is the CPU.  Tolerances:
 * a batch equals solo runs of its clips exactly.
 """
 
+import contextlib
 import json
+import operator
+import os
+import signal
 
 import cv2
 import jax
@@ -38,9 +45,10 @@ from meshflow_tpu.parallel.pipeline import stabilize_sharded as jax_sharded
 from meshflow_tpu_torch.api import MeshFlowStabilizer
 from meshflow_tpu_torch.config import MeshFlowConfig
 from meshflow_tpu_torch.io import video as video_io
-from meshflow_tpu_torch.parallel import batch, cuda_devices
-from meshflow_tpu_torch.parallel.pipeline import stabilize_sharded
-from meshflow_tpu_torch.solver.jacobi import jacobi_smooth, jacobi_smooth_sharded
+from meshflow_tpu_torch.kernels import bmap_cuda, lk_cuda
+from meshflow_tpu_torch.parallel import batch, cuda_devices, workers
+from meshflow_tpu_torch.parallel.pipeline import smooth_sharded, stabilize_sharded
+from meshflow_tpu_torch.solver.jacobi import jacobi_smooth, jacobi_smooth_halo
 from meshflow_tpu_torch.utils import prng
 from test_torch_slice import _psnr, _rel
 from test_torch_threads import two_torch_threads  # noqa: F401  (autouse)
@@ -49,6 +57,31 @@ from test_torch_threads import two_torch_threads  # noqa: F401  (autouse)
 SMALL = dict(max_features_per_subframe=64, ransac_iterations=64, lk_max_iterations=10,
              optimization_num_iterations=20)
 H, W = 96, 128
+CPUS = [torch.device("cpu")] * 2
+
+
+@contextlib.contextmanager
+def time_limit(seconds):
+    """Raise TimeoutError in the test, and end every worker process, when
+    the block runs past `seconds`."""
+    def expire(signum, frame):
+        workers.shutdown(terminate=True)
+        raise TimeoutError(f"worker processes still running after {seconds} s")
+
+    previous = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def close_pools():
+    """No worker process outlives the module."""
+    yield
+    workers.shutdown()
 
 
 def _frames(num_frames, seed=1234):
@@ -78,19 +111,37 @@ def _run(frames, shards, solver_mode="halo", seed=0, **fields):
 
 @pytest.mark.parametrize("shards", [1, 2, 4])
 def test_halo_jacobi_equals_replicated(shards):
-    """The halo solve of the sharded state, bit for bit the replicated one
-    (omega 10, 12-frame shards, the boundary shards zero-padded)."""
+    """The halo solve of the sharded state, one process a shard, bit for
+    bit the replicated one (omega 10, 12-frame shards, the boundary shards
+    zero-padded)."""
     rng = np.random.default_rng(7)
     num_frames = 12 * shards
     b = torch.from_numpy(rng.normal(0, 5, (num_frames, 5, 6, 2)).astype(np.float32))
     lambdas = torch.from_numpy(rng.uniform(0.5, 30, num_frames).astype(np.float32))
     want = jacobi_smooth(b, lambdas, 10, 40)
-    got = jacobi_smooth_sharded(list(b.split(12)), lambdas, 10, 40)
-    assert len(got) == shards
-    assert torch.equal(torch.cat(got), want)
+    with time_limit(120):
+        got = smooth_sharded(b, lambdas, 10, 40, devices=["cpu"] * shards)
+    assert torch.equal(got, want)
     if shards > 1:
         with pytest.raises(ValueError):
-            jacobi_smooth_sharded(list(b.split(6)), lambdas, 10, 40)
+            smooth_sharded(b, lambdas, 10, 40, devices=["cpu"] * shards * 2)
+
+
+def test_halo_jacobi_exchanges_over_a_gloo_group():
+    """jacobi_smooth_halo over a two-process gloo group: each rank takes
+    its neighbour's omega frames every sweep, and the whole equals
+    jacobi_smooth; the blocks solved apart, with no exchange, do not."""
+    rng = np.random.default_rng(8)
+    b = torch.from_numpy(rng.normal(0, 5, (16, 3, 4, 2)).astype(np.float32))
+    lambdas = torch.from_numpy(rng.uniform(0.5, 30, 16).astype(np.float32))
+    want = jacobi_smooth(b, lambdas, 5, 30)
+    with time_limit(120):
+        got = smooth_sharded(b, lambdas, 5, 30, devices=CPUS)
+        assert workers.pool(CPUS).backend == "gloo"
+    assert torch.equal(got, want)
+    apart = torch.cat([jacobi_smooth(b[:8], lambdas[:8], 5, 30),
+                       jacobi_smooth(b[8:], lambdas[8:], 5, 30)])
+    assert not torch.equal(apart, want)
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +156,8 @@ def jax_two_shards():
 
 @pytest.fixture(scope="module")
 def port_two_shards(jax_two_shards):
-    return _run(jax_two_shards[0], 2)
+    with time_limit(300):
+        return _run(jax_two_shards[0], 2)
 
 
 def test_sharded_matches_jax(jax_two_shards, port_two_shards):
@@ -120,7 +172,8 @@ def test_sharded_matches_jax(jax_two_shards, port_two_shards):
 
 
 def test_sharded_serving_mode(jax_two_shards, port_two_shards):
-    served = _run(jax_two_shards[0], 2, compute_metrics=False)
+    with time_limit(300):
+        served = _run(jax_two_shards[0], 2, compute_metrics=False)
     np.testing.assert_array_equal(served[0], port_two_shards[0])
     assert served[1] == port_two_shards[1]
     assert np.isnan(served[2]) and np.isnan(served[3])
@@ -132,11 +185,13 @@ def shard_runs():
     """24 frames, 1 shard and 4 shards of 6, with omega 5 (a shard at least
     omega long, so the halo solver engages), both solver modes at 4."""
     frames = _frames(24, seed=5)
-    return {
-        1: _run(frames, 1, seed=5, temporal_smoothing_radius=5),
-        4: _run(frames, 4, seed=5, temporal_smoothing_radius=5),
-        "4-replicated": _run(frames, 4, "replicated", seed=5, temporal_smoothing_radius=5),
-    }
+    with time_limit(400):
+        return {
+            1: _run(frames, 1, seed=5, temporal_smoothing_radius=5),
+            4: _run(frames, 4, seed=5, temporal_smoothing_radius=5),
+            "4-replicated": _run(frames, 4, "replicated", seed=5,
+                                 temporal_smoothing_radius=5),
+        }
 
 
 def test_sharded_shard_count_invariance(shard_runs):
@@ -194,7 +249,8 @@ def test_batch_equals_solo(clips):
         for i, p in enumerate(paths)
     ]
     jobs = [batch.BatchJob(p, str(tmp / f"batch{i}.avi"), 0) for i, p in enumerate(paths)]
-    assert batch.stabilize_batch(jobs, config=config, devices=["cpu", "cpu"]) == tuple(solo)
+    with time_limit(300):
+        assert batch.stabilize_batch(jobs, config=config, devices=["cpu", "cpu"]) == tuple(solo)
     for i in range(2):
         a, _ = video_io.read_video(str(tmp / f"solo{i}.avi"))
         b, _ = video_io.read_video(str(tmp / f"batch{i}.avi"))
@@ -211,7 +267,8 @@ def test_batch_manifest_cli(clips, capsys, monkeypatch):
     manifest.write_text(json.dumps(
         [{"input": p, "output": o, "variant": v} for p, o, v in zip(paths, outs, variants)]))
     monkeypatch.setattr(batch, "stabilize_batch", _small_batch(batch.stabilize_batch, SMALL))
-    assert batch.main([str(manifest), "--devices", "cpu,cpu", "--seed", "3"]) == 0
+    with time_limit(300):
+        assert batch.main([str(manifest), "--devices", "cpu,cpu", "--seed", "3"]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
     assert [(x["input"], x["output"]) for x in lines] == list(zip(paths, outs))
     for path, line, variant in zip(paths, lines, (0, 3)):
@@ -228,3 +285,133 @@ def _small_batch(run, fields):
         return run(jobs, config=MeshFlowConfig(**fields), devices=devices, seed=seed)
 
     return small
+
+
+# Run in a worker: its pid and the modules of the JAX package it holds.
+CHILD_STATE = ("(__import__('os').getpid(), sorted(m for m in __import__('sys').modules "
+               "if m.split('.')[0] in ('jax', 'meshflow_tpu')))")
+
+
+def test_workers_are_processes_of_their_own():
+    """A two-shard halo solve runs in two worker processes, one task each:
+    their pids differ from the test's and from each other's, and neither
+    holds JAX or the JAX package."""
+    rng = np.random.default_rng(9)
+    b = torch.from_numpy(rng.normal(0, 5, (12, 3, 4, 2)).astype(np.float32))
+    lambdas = torch.from_numpy(rng.uniform(0.5, 30, 12).astype(np.float32))
+    with time_limit(120):
+        smooth_sharded(b, lambdas, 5, 10, devices=CPUS)
+        pool = workers.pool(CPUS)
+        assert [u["tasks"] for u in pool.last_usage] == [1, 1]
+        assert all(u["cpu_seconds"] > 0 for u in pool.last_usage)
+        states = pool.each(eval, [(CHILD_STATE,)] * 2)
+    pids = [pid for pid, _ in states]
+    assert pids == [p.pid for p in pool.procs]
+    assert len(set(pids)) == 2 and os.getpid() not in pids
+    assert [mods for _, mods in states] == [[], []]
+
+
+def test_pool_keeps_its_buffers_and_one_pool_lives():
+    """Two sharded calls of one shape share the pool's host buffers, yet
+    the first call's result is its own (a copy, not the buffer); a pool of
+    another list closes the last one."""
+    rng = np.random.default_rng(10)
+    lambdas = torch.from_numpy(rng.uniform(0.5, 30, 12).astype(np.float32))
+    bs = [torch.from_numpy(rng.normal(0, 5, (12, 3, 4, 2)).astype(np.float32)) for _ in range(2)]
+    with time_limit(120):
+        first = smooth_sharded(bs[0], lambdas, 5, 10, devices=CPUS)
+        pool = workers.pool(CPUS)
+        buffers = {name: t.data_ptr() for name, (_, t) in pool._buffers.items()}
+        second = smooth_sharded(bs[1], lambdas, 5, 10, devices=CPUS)
+        assert workers.pool(CPUS) is pool
+        assert {name: t.data_ptr() for name, (_, t) in pool._buffers.items()} == buffers
+        procs = list(pool.procs)
+        other = workers.pool([torch.device("cpu")] * 3)
+    assert torch.equal(first, jacobi_smooth(bs[0], lambdas, 5, 10))
+    assert torch.equal(second, jacobi_smooth(bs[1], lambdas, 5, 10))
+    assert other is not pool and not any(p.is_alive() for p in procs)
+    assert len(other.procs) == 3
+
+
+class _Rank:
+    """A rank's collectives with no group: a world-2 stand-in for the halo
+    solver's own guard, which raises before any exchange."""
+
+    def __init__(self, rank, world):
+        self.rank, self.world = rank, world
+
+    def halo(self, head, tail):
+        raise AssertionError("no exchange expected")
+
+
+def test_halo_jacobi_needs_blocks_of_omega():
+    """jacobi_smooth_halo itself refuses blocks shorter than omega when
+    there is more than one rank, before any exchange."""
+    rng = np.random.default_rng(11)
+    b = torch.from_numpy(rng.normal(0, 5, (8, 3, 4, 2)).astype(np.float32))
+    lambdas = torch.from_numpy(rng.uniform(0.5, 30, 8).astype(np.float32))
+    with pytest.raises(ValueError, match="omega=5"):
+        jacobi_smooth_halo(b[:4], lambdas, 5, 10, _Rank(0, 2))
+
+
+def test_batch_jobs_run_in_worker_processes(tmp_path):
+    """stabilize_batch over two entries: each job on its own worker, the
+    ArrayClip's frames through shared memory, the CaptureWriter filled in
+    the caller's object, equal to the solo runs."""
+    from meshflow_tpu_torch import streaming
+
+    config = MeshFlowConfig(**SMALL)
+    clips = [_frames(8, seed=60 + i) for i in range(2)]
+    solo = []
+    for frames in clips:
+        writer = streaming.CaptureWriter()
+        metrics = MeshFlowStabilizer(config=config, device="cpu").stabilize(
+            streaming.ArrayClip(frames), writer, 0)
+        solo.append((writer.frames(), metrics))
+    jobs = [batch.BatchJob(streaming.ArrayClip(f), streaming.CaptureWriter(), 0) for f in clips]
+    with time_limit(300):
+        got = batch.stabilize_batch(jobs, config=config, devices=CPUS)
+        usage = workers.pool(CPUS).last_usage
+    assert [u["tasks"] for u in usage] == [1, 1]
+    for job, metrics, (frames, want) in zip(jobs, got, solo):
+        assert metrics == want
+        np.testing.assert_array_equal(job.output_path.frames(), frames)
+
+
+def test_child_launches_reach_the_parents_counters(monkeypatch):
+    """The children's launch deltas are added into the parent's wrappers:
+    each child sets its own kernel A and B counters (a stub for the CPU,
+    where the wrappers take their plain versions and count nothing)."""
+    devices = [torch.device("cpu")] * 3
+    monkeypatch.setattr(lk_cuda.lk_level, "launches", 10)
+    monkeypatch.setattr(bmap_cuda.backward_map, "launches", 1)
+    with time_limit(60):
+        pool = workers.pool(devices)
+        pool.each(setattr, [(lk_cuda.lk_level, "launches", n) for n in (2, 3, 4)])
+        pool.map(setattr, [(bmap_cuda.backward_map, "launches", 5)])
+        pool.close()
+    assert lk_cuda.lk_level.launches == 10 + 2 + 3 + 4
+    assert bmap_cuda.backward_map.launches == 1 + 5
+    assert [u["launches"].get("backward_map", 0) for u in pool.last_usage] == [5, 0, 0]
+
+
+def test_a_child_that_raises_makes_the_call_raise():
+    with time_limit(60):
+        pool = workers.pool(CPUS)
+        procs = list(pool.procs)
+        with pytest.raises(workers.WorkerError, match="ZeroDivisionError: division by zero"):
+            pool.map(operator.truediv, [(1, 2), (1, 0)])
+        assert not any(p.is_alive() for p in procs)
+        assert workers.pool(CPUS).map(operator.truediv, [(1, 2)]) == [0.5]
+
+
+def test_a_child_that_exits_makes_the_call_raise():
+    """A worker that exits mid-call raises in the parent with its exit
+    code instead of leaving the parent waiting; the pool is closed."""
+    with time_limit(60):
+        pool = workers.pool(CPUS)
+        procs = list(pool.procs)
+        with pytest.raises(workers.WorkerError, match="exited with code 3"):
+            pool.map(os._exit, [(3,)])
+        assert not any(p.is_alive() for p in procs)
+        assert workers.pool(CPUS) is not pool
