@@ -51,6 +51,29 @@ From the root of a checkout, on a machine with one CUDA card:
    at CHUNK 64 and 16, its frames torch.equal and its metrics equal to
    ``_stabilize_frames`` at the same CHUNK, the kernels' launch counts,
    warm wall time and a pass with its stages timed;
+12a. graphs: every phase runs its match batches (and online its step) as
+   CUDA graphs of its stabilizer's runner (``utils/graphs.py``); this
+   phase runs the 640x360 main path, online over the clip's first 40
+   frames, the 1080p d=3 path (kernel C) and the stream at CHUNK 64 on the
+   card eagerly (``_graphs=False``) beside the graphed stabilizers of the
+   phases above: crop, frames and metrics torch.equal, launch counters
+   equal (eig9's too), no capture in a warm graphed pass; warm passes of
+   the two routes alternating; for each route warm walls, stages, and on
+   the first 64 frames the card's busy share and CUDA launches and kernels
+   by stage (profiler traces through MESHFLOW_TRACE_DIR) with the hand
+   kernels the card ran counted by name and equal to the wrappers' counts
+   (also over 8 replayed online frames), peak device memory, online p50 /
+   p90 and first frames; the graphed route's capture seconds and pool.
+   The 4K and 1080p/64 phases add an eager cold pass for its peak memory,
+   and close their stabilizers at their end (freeing the graphs' pool);
+12b. eig9: the eig9 kernel (the DLT's null vector) against eigh and
+   against its PyTorch emulation on the DLT inputs of one motion block and
+   one metric block of the 640x360 clip, recorded on the eager route:
+   homographies within 1e-5 relative where eigh's eigenvalue gap exceeds
+   1e-9 ||N||_F, Rayleigh quotients within 1e-12 ||N||_F of the least
+   eigenvalue, equal ok and degenerate masks downstream; its time beside
+   eigh's, both by device events and by the host clock, and its bound
+   from what the function needs; whether the 640x360 digest moved;
 13. checkpoint: a streamed run that writes a checkpoint under a temporary
    directory, then reruns under the same and another variant that skip
    pass 1 (kernel A runs the metric pass's launches only) and equal fresh
@@ -186,6 +209,14 @@ copy and fine select at 16,
 one round a launch), probe E at the probe's r0 and probe G at B = 8 (with
 and without programmatic dependent launch, and its launch floor, where
 the tree has them), beside the PyTorch calls of the same functions.
+
+    python3 chip_smoke.py --tree DIR --parts main,online,batch,sharded
+
+runs the named parts of the checkout in DIR alone and prints their JSON
+line, with no comparison: for trees whose outputs differ (``online``:
+the 120-frame online run; in a tree whose stabilizers take ``_graphs``,
+``main`` and ``online`` also run the card eagerly).  Run it for each
+tree in turn, in the order DIR, this, this, DIR, in one call.
 """
 
 from __future__ import annotations
@@ -193,8 +224,10 @@ from __future__ import annotations
 import argparse
 import datetime
 import hashlib
+import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -246,11 +279,68 @@ def fetch_route(route):
 
 
 def reset_launches():
-    from meshflow_tpu_torch.kernels import bmap_cuda, lk_band_cuda, lk_cuda
+    from meshflow_tpu_torch.kernels import bmap_cuda, eig9_cuda, lk_band_cuda, lk_cuda
 
     lk_cuda.lk_level.launches = 0
     lk_band_cuda.lk_level_band.launches = 0
     bmap_cuda.backward_map.launches = 0
+    eig9_cuda.null_vector.launches = 0
+
+
+def eig9_launches() -> int:
+    """The eig9 kernel's launches since ``reset_launches``."""
+    from meshflow_tpu_torch.kernels import eig9_cuda
+
+    return eig9_cuda.null_vector.launches
+
+
+def eig9_count(config, num_frames, chunk, streamed=False):
+    """eig9 launches of a pass: four a match batch (RANSAC's fit and its
+    polish rounds, then the global fit), batches of PAIR_BATCH pairs over
+    each motion block (a streamed window: its pairs with the halo frame)
+    and, with metrics on, each metric block."""
+    import math
+
+    from meshflow_tpu_torch.motion.pipeline import PAIR_BATCH
+
+    per = 2 + config.ransac_polish_rounds
+    if streamed:
+        pairs = [min(chunk, num_frames) - 1] + [
+            min(chunk, num_frames - s) for s in range(chunk, num_frames, chunk)]
+    else:
+        pairs = [min(chunk - 1, num_frames - 1 - s) for s in range(0, num_frames - 1, chunk - 1)]
+    batches = sum(math.ceil(p / PAIR_BATCH) for p in pairs)
+    if config.compute_metrics:
+        batches += sum(math.ceil(min(chunk, num_frames - s) / PAIR_BATCH)
+                       for s in range(0, num_frames, chunk))
+    return per * batches
+
+
+def runner_state(stab):
+    """(captures, replays, capture seconds) of a stabilizer's graph runner."""
+    r = stab._runner
+    return r.captures, r.replays, r.capture_seconds
+
+
+def release_graphs(name, stab):
+    """Close a stabilizer at the end of a geometry's phase, as a user done
+    with that geometry would: print its graphs' pool and the card memory
+    its ``close()`` returned."""
+    import torch
+
+    held = pool_gib(stab)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    stab.close()
+    print(f"{name}: the stabilizer's close() freed its graphs' pool of {held} GiB: "
+          f"{(torch.cuda.mem_get_info()[0] - free) / (1 << 30):.3f} GiB of the card back")
+
+
+def pool_gib(stab):
+    """GiB a stabilizer's graph pool holds (None: not readable)."""
+    held = stab._runner.pool_bytes()
+    return None if held is None else held / (1 << 30)
 
 
 def read_launches():
@@ -828,7 +918,7 @@ def phase_main_path(device, num_frames=300, h=360, w=640, pan=120):
 
     run = in_memory_passes("main path", device, synthetic_clip(num_frames, h, w, pan=pan),
                            MeshFlowConfig(), pan)
-    return run["launches"], run["cold_s"], run["warm_s"], run["out"]
+    return run["launches"], run["cold_s"], run["warm_s"], run["out"], run
 
 
 def check_output(name, stab, out, num_frames, h, w, pan, device):
@@ -856,14 +946,20 @@ def check_output(name, stab, out, num_frames, h, w, pan, device):
     return crop, metrics, mean_dx
 
 
-def in_memory_passes(name, device, frames_np, config, pan, route=None):
+def in_memory_passes(name, device, frames_np, config, pan, route=None, eager_peak=False):
     """``_stabilize_frames`` on `frames_np` with `config`, on kernel A (the
-    default route) or, with route="band", on kernel C: a cold pass with its
-    peak device memory above the start (the clip's upload included), a warm
-    pass equal to it, a third pass with its stages timed; the cold pass's
-    launches against the reckoned counts and the output checks.  Returns a
-    dict with the stabilizer, the frames and the cold pass's output on the
-    device."""
+    default route) or, with route="band", on kernel C, its match batches as
+    CUDA graphs of the stabilizer's runner: a cold pass with its peak device
+    memory above the start (the clip's upload included), a warm pass equal
+    to it, a third pass with its stages timed; the cold pass's launches
+    against the reckoned counts (eig9's too) and the output checks; at most
+    one capture a batch kind in the cold pass and none in the warm one.
+    With eager_peak, one more cold pass on the card run eagerly
+    (``_graphs=False``)
+    for its peak device memory with a second copy of the clip uploaded
+    inside its window, as in the cold pass, torch.equal to the graphed one.
+    Returns a dict with the stabilizer, the frames and the cold pass's
+    output on the device."""
     import contextlib
 
     import torch
@@ -874,6 +970,7 @@ def in_memory_passes(name, device, frames_np, config, pan, route=None):
     num_frames, h, w = frames_np.shape[:3]
     stab = MeshFlowStabilizer(config=config, device=device)
     with fetch_route(route) if route else contextlib.nullcontext():
+        graphs_before = runner_state(stab)
         with peak_memory() as peak:
             frames = torch.from_numpy(frames_np).to(device)
             reset_launches()
@@ -882,33 +979,65 @@ def in_memory_passes(name, device, frames_np, config, pan, route=None):
             out = stab._stabilize_frames(frames, 0)
             torch.cuda.synchronize()
             cold_s = time.perf_counter() - start
-        launches = read_launches()
+        launches, eig9 = read_launches(), eig9_launches()
+        graphs_cold = runner_state(stab)
         start = time.perf_counter()
         warm = stab._stabilize_frames(frames, 0)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - start
+        graphs_warm = runner_state(stab)
         check(torch.equal(out[0], warm[0]), f"{name}: warm pass output differs from cold pass")
         del warm
         # a third pass for the stages: the timer synchronizes at each stage end
         stab._stabilize_frames(frames, 0, StageTimer(enabled=True, device=device))
+        if eager_peak:
+            with peak_memory() as eager:  # the clip's upload inside, as in the cold pass
+                frames_e = torch.from_numpy(frames_np).to(device)
+                start = time.perf_counter()
+                got = MeshFlowStabilizer(config=config, device=device,
+                                         _graphs=False)._stabilize_frames(frames_e, 0)
+                torch.cuda.synchronize()
+                eager_s = time.perf_counter() - start
+            del frames_e
+            check(all(torch.equal(a, b) for a, b in zip(got, out)),
+                  f"{name}: the eager pass differs from the graphed one")
+            del got
     stages = {stage: round(sec, 4) for stage, sec in stab.last_timer.stages}
     crop, metrics, mean_dx = check_output(name, stab, out, num_frames, h, w, pan, device)
     lk, bmap = stream_launch_counts(config, h, w, num_frames, stab.CHUNK, maps_a_block=1)
     kernel, key = ("C", "lk_band") if route == "band" else ("A", "lk_level")
     check(launches == {"lk_level": 0, "lk_band": 0, key: lk, "backward_map": bmap},
           f"{name}: launches {launches}, expected kernel {kernel} {lk}, kernel B {bmap}")
+    want_eig9 = eig9_count(config, num_frames, stab.CHUNK)
+    check(eig9 == want_eig9, f"{name}: eig9 ran {eig9} times, reckoned {want_eig9}")
+    captures = graphs_cold[0] - graphs_before[0]
+    check(captures <= 1 + config.compute_metrics and graphs_warm[0] == graphs_cold[0],
+          f"{name}: {captures} captures in the cold pass, "
+          f"{graphs_warm[0] - graphs_cold[0]} in the warm one")
     th, tw = config.track_shape(h, w)
+    graph_note = (f"graphs: {captures} captured in the cold pass "
+                  f"({graphs_cold[2] - graphs_before[2]:.3f} s), "
+                  f"{graphs_warm[1] - graphs_cold[1]} replays and no capture in the warm pass, "
+                  f"pool {pool_gib(stab)} GiB")
     print(f"{name}: {num_frames} frames {w}x{h}, mesh {config.mesh_row_count}x"
           f"{config.mesh_col_count}, d={config.resolve_track_downscale(h, w)} (tracking "
           f"{tw}x{th}), kernel {kernel}: cold {cold_s:.3f} s, warm {warm_s:.3f} s "
           f"({num_frames / warm_s:.2f} fps); peak device memory {peak.gib:.3f} GiB; launches "
-          f"{launches} (reckoned: kernel {kernel} {lk}, kernel B {bmap}); crop {crop}; "
+          f"{launches} (reckoned: kernel {kernel} {lk}, kernel B {bmap}), eig9 {eig9}; "
+          f"{graph_note}; crop {crop}; "
           f"cropping ratio {metrics[0]:.6f}, distortion {metrics[1]:.6f}, stability "
           f"{metrics[2]:.6f}; last-frame mean x displacement {mean_dx:.3f} px; third pass "
           f"stages (s) {stages}")
-    return {"stab": stab, "frames": frames, "out": out, "cold_s": cold_s, "warm_s": warm_s,
-            "stages": stages, "peak_gib": peak.gib, "launches": launches, "crop": crop,
-            "metrics": metrics}
+    run = {"stab": stab, "frames": frames, "out": out, "cold_s": cold_s, "warm_s": warm_s,
+           "stages": stages, "peak_gib": peak.gib, "launches": launches, "crop": crop,
+           "metrics": metrics, "eig9": eig9, "captures": captures,
+           "capture_s": graphs_cold[2] - graphs_before[2], "pool_gib": pool_gib(stab)}
+    if eager_peak:
+        run.update(eager_peak_gib=eager.gib, eager_cold_s=eager_s)
+        print(f"{name} eager (_graphs=False): cold {eager_s:.3f} s, peak device memory "
+              f"{eager.gib:.3f} GiB beside the graphed cold pass's {peak.gib:.3f} (both with "
+              f"the clip's upload); outputs torch.equal")
+    return run
 
 
 def phase_1080p(device, num_frames=300, h=1080, w=1920, pan=360):
@@ -920,7 +1049,7 @@ def phase_1080p(device, num_frames=300, h=1080, w=1920, pan=360):
 
     run = in_memory_passes("1080p path", device, synthetic_clip(num_frames, h, w, pan=pan),
                            MeshFlowConfig(), pan, route="band")
-    return run["launches"], run["frames"][:64], run["warm_s"], run["stages"]
+    return run["launches"], run["frames"][:64], run["warm_s"], run["stages"], run
 
 
 def phase_1080p_control(device, frames, pan):
@@ -956,16 +1085,23 @@ def phase_1080p_control(device, frames, pan):
     return rows
 
 
-def phase_online(device, num_frames=120, h=360, w=640, config=None, name="online"):
+def phase_online(device, num_frames=120, h=360, w=640, config=None, name="online",
+                 graphed=True, frames=None):
     """Online mode on a jittery 640x360 clip with the default fetch (and
-    `config`, default the default one)."""
+    `config`, default the default one), its step one CUDA graph of the
+    stabilizer's own, captured at the third frame and replayed after
+    (graphed=False runs it eagerly); the graph released at the end.
+    `frames`: the clip's frames (default the synthetic 640x360 clip of
+    `num_frames`)."""
     import numpy as np
     import torch
 
     from meshflow_tpu_torch.online import OnlineMeshFlowStabilizer
 
-    frames = synthetic_clip(num_frames, h, w, pan=60)
-    stab = OnlineMeshFlowStabilizer(config=config, device=device)
+    if frames is None:
+        frames = synthetic_clip(num_frames, h, w, pan=60)
+    num_frames = len(frames)
+    stab = OnlineMeshFlowStabilizer(config=config, device=device, _graphs=graphed)
     levels = stab.config.lk_max_level(h, w) + 1
     reset_launches()
     times, outs, c_mean, p_mean = [], [], [], []
@@ -980,14 +1116,18 @@ def phase_online(device, num_frames=120, h=360, w=640, config=None, name="online
         c_mean.append(state.unstab_window[-1].mean((0, 1)).cpu().numpy())
         p_mean.append(state.stab_window[-1].mean((0, 1)).cpu().numpy())
     launches = read_launches()
+    eig9 = eig9_launches()
+    graph_runs = (stab._runner.captures, stab._runner.replays)
+    stab.close()
     steady = np.asarray(times[10:])
     c_jerk = np.abs(np.diff(np.asarray(c_mean[1:]), 2, axis=0)).mean()
     p_jerk = np.abs(np.diff(np.asarray(p_mean[1:]), 2, axis=0)).mean()
     p50, p90 = np.percentile(steady, 50), np.percentile(steady, 90)
     print(f"{name}: {num_frames} frames {w}x{h}: first frame {times[0]:.3f} ms, per-frame "
           f"p50 {p50:.3f} ms p90 {p90:.3f} ms (frames 10-{num_frames - 1}); launches "
-          f"{launches}; mean |second difference| of the frame-mean path: raw c_t "
-          f"{c_jerk:.4f} px, stabilized p_t {p_jerk:.4f} px")
+          f"{launches}, eig9 {eig9}; graph captures and replays {graph_runs}; mean |second "
+          f"difference| of the frame-mean path: raw c_t {c_jerk:.4f} px, stabilized p_t "
+          f"{p_jerk:.4f} px")
     check(np.array_equal(outs[0], frames[0]), f"{name}: first output differs from first input")
     check(all(o.shape == (h, w, 3) and o.dtype == np.uint8 for o in outs),
           f"{name}: output shape or dtype")
@@ -996,7 +1136,14 @@ def phase_online(device, num_frames=120, h=360, w=640, config=None, name="online
           f"{num_frames - 1}")
     check(launches["backward_map"] == num_frames - 1, f"{name}: kernel B launch count")
     check(p_jerk < c_jerk, f"{name}: stabilized path {p_jerk} not smoother than {c_jerk}")
-    return {"first_ms": times[0], "p50_ms": p50, "p90_ms": p90, "launches": launches}
+    check(eig9 == 4 * (num_frames - 1), f"{name}: eig9 ran {eig9} times, expected 4 x "
+          f"{num_frames - 1}")
+    if stab._runner.enabled:
+        check(graph_runs == (1, num_frames - 2),
+              f"{name}: {graph_runs} captures and replays, expected 1 and {num_frames - 2}")
+    return {"first_ms": times[0], "p50_ms": p50, "p90_ms": p90, "launches": launches,
+            "eig9": eig9, "second_ms": times[1], "third_ms": times[2], "outs": outs,
+            "frames": frames}
 
 
 def phase_small_agreement(device):
@@ -1054,8 +1201,9 @@ def stream_launch_counts(config, h, w, num_frames, chunk, maps_a_block=2):
 
 
 def run_streamed(stab, clip, device, variant=0, timer=None, checkpoint_dir=None):
-    """One streamed run of `clip` into a capturing writer: (frames on the
-    host, metrics, seconds, launches)."""
+    """One streamed run of `clip` into a capturing writer, its match
+    batches through the stabilizer's runner, as ``stab.stabilize`` runs
+    it: (frames on the host, metrics, seconds, launches)."""
     import torch
 
     from meshflow_tpu_torch import streaming
@@ -1068,7 +1216,7 @@ def run_streamed(stab, clip, device, variant=0, timer=None, checkpoint_dir=None)
     metrics = streaming.stabilize_streamed(
         clip, writer, variant, stab.config, stab._key,
         timer or StageTimer(enabled=False, device=device), device, chunk=stab.CHUNK,
-        checkpoint_dir=checkpoint_dir,
+        checkpoint_dir=checkpoint_dir, runner=stab._runner,
     )
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
@@ -1487,18 +1635,21 @@ def shard_count_gates(name, one, many):
 
 def processes_of(devices):
     """How a parallel call over `devices` ran: its process count, the
-    group's backend and each worker's peak device memory (GiB) and CPU
-    seconds in its last call (one entry: the calling process)."""
+    group's backend and each worker's peak device memory (GiB), CPU
+    seconds and CUDA graphs (captures, replays) in its last call (one
+    entry: the calling process)."""
     import torch
 
     from meshflow_tpu_torch.parallel import workers
 
     if len(devices) == 1:
-        return {"processes": 1, "backend": None, "peak_gib": [], "cpu_seconds": []}
+        return {"processes": 1, "backend": None, "peak_gib": [], "cpu_seconds": [],
+                "graphs": []}
     pool = workers.pool([torch.device(d) for d in devices])
     return {"processes": len(pool.procs), "backend": pool.backend,
             "peak_gib": [(u["peak_bytes"] or 0) / (1 << 30) for u in pool.last_usage],
-            "cpu_seconds": [u["cpu_seconds"] for u in pool.last_usage]}
+            "cpu_seconds": [u["cpu_seconds"] for u in pool.last_usage],
+            "graphs": [u["graphs"] for u in pool.last_usage]}
 
 
 def card_used_gib() -> float:
@@ -1631,7 +1782,8 @@ def kernel_share(device, run):
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, wall = timed_parallel(run)
-    return wall, kernel_busy_seconds(prof, torch.device(device).index)
+    index = torch.device(device).index
+    return wall, kernel_busy_seconds(prof, torch.cuda.current_device() if index is None else index)
 
 
 class card_utilization:
@@ -1827,8 +1979,11 @@ def phase_sharded(device, num_frames=300, h=360, w=640, pan=120):
         print(f"sharded {name}: {num_frames} frames {w}x{h}: {wall:.3f} s; "
               f"{procs['processes']} process(es), backend {procs['backend']}, worker peak GiB "
               f"{[round(x, 3) for x in procs['peak_gib']]}, worker CPU s "
-              f"{[round(x, 3) for x in procs['cpu_seconds']]}; CPU {cpu.line()}; crop "
+              f"{[round(x, 3) for x in procs['cpu_seconds']]}, worker graph captures and "
+              f"replays {procs['graphs']}; CPU {cpu.line()}; crop "
               f"{runs[name][1]}; metrics {metrics}; launches {launches}")
+        check(all(r > 0 for _, r in procs["graphs"]),
+              f"sharded {name}: a rank replayed no graph ({procs['graphs']})")
     out["card_used_gib"] = card_used_gib()
     pids = {p.pid: f"worker {i}" for i, p in enumerate(workers.current().procs)}
     pids[os.getpid()] = "caller"
@@ -1901,9 +2056,12 @@ def phase_batch(device, num_frames=120, h=360, w=640):
         print(f"batch: 2 clips x {num_frames} frames {w}x{h} on {workers_n} worker(s) of one "
               f"card, {run}: {wall:.3f} s; {procs['processes']} process(es), worker CPU s "
               f"{[round(x, 3) for x in procs['cpu_seconds']]}, worker peak GiB "
-              f"{[round(x, 3) for x in procs['peak_gib']]}; card busy (nvidia-smi) "
+              f"{[round(x, 3) for x in procs['peak_gib']]}, worker graph captures and "
+              f"replays {procs['graphs']}; card busy (nvidia-smi) "
               f"{smi.share}; CPU {cpu.line()}; each job's frames and metrics equal its solo "
               f"run; launches {launches}")
+        check(all(r > 0 for _, r in procs["graphs"]),
+              f"batch ({workers_n} workers): a worker replayed no graph ({procs['graphs']})")
         out[workers_n if run == "warm" else f"{workers_n} cold"] = {
             "seconds": wall, "launches": launches, "smi_busy": smi.share, "cpu": cpu.by_process,
             **procs}
@@ -2167,7 +2325,7 @@ def phase_4k(device, num_frames=300, h=2160, w=3840, pan=720):
     frames_np = synthetic_clip(num_frames, h, w, pan=pan)
     print(f"4K: host RAM {host_ram_gib():.1f} GiB; the clip {frames_np.nbytes / 1e9:.2f} GB; "
           f"process peak RSS {peak_rss_gib():.3f} GiB")
-    run = in_memory_passes("4K", device, frames_np, config, pan)
+    run = in_memory_passes("4K", device, frames_np, config, pan, eager_peak=True)
     out = run["out"]
     serving = serving_against("4K", device, run["frames"], config, out,
                               (run["cold_s"], run["warm_s"]))
@@ -2184,19 +2342,22 @@ def phase_4k(device, num_frames=300, h=2160, w=3840, pan=720):
     check(streamed["no host cache"]["sources"] == ["decode", "resident"],
           f"4K streamed without the host cache: pass 2 took "
           f"{streamed['no host cache']['sources']}, not the resident prefix and a decode")
-    del run["stab"], run["ref"]
+    release_graphs("4K", run.pop("stab"))
+    del run["ref"]
     return dict(run, serving=serving, streamed=streamed)
 
 
-def phase_geometry(device, name, config, num_frames, h, w, pan):
-    """A clip of another geometry in memory (``in_memory_passes``) and
-    streamed with the default budgets, torch.equal to it."""
+def phase_geometry(device, name, config, num_frames, h, w, pan, eager_peak=False):
+    """A clip of another geometry in memory (``in_memory_passes``, with
+    `eager_peak` an eager pass's peak too) and streamed with the default
+    budgets, torch.equal to it; the stabilizer closed at the end."""
     frames_np = synthetic_clip(num_frames, h, w, pan=pan)
-    run = in_memory_passes(name, device, frames_np, config, pan)
+    run = in_memory_passes(name, device, frames_np, config, pan, eager_peak=eager_peak)
     run["ref"] = (run["out"][0].cpu(), run["metrics"])
     del run["frames"], run["out"]
     run["streamed"] = streamed_against(f"{name} streamed", run, frames_np, device)
-    del run["stab"], run["ref"]
+    del run["ref"]
+    release_graphs(name, run.pop("stab"))
     return run
 
 
@@ -2207,7 +2368,7 @@ def phase_mesh64(device, stages_16, num_frames=300, h=1080, w=1920, pan=360):
     from meshflow_tpu_torch.config import MeshFlowConfig
 
     config = MeshFlowConfig(mesh_row_count=64, mesh_col_count=64)
-    run = phase_geometry(device, "1080p/64", config, num_frames, h, w, pan)
+    run = phase_geometry(device, "1080p/64", config, num_frames, h, w, pan, eager_peak=True)
     print(f"1080p/64: motion stage {run['stages']['motion']:.4f} s beside the 16x16 mesh's "
           f"{stages_16['motion']:.4f} s (1080p phase, kernel C); metrics "
           f"{run['stages']['metrics']:.4f} s beside {stages_16['metrics']:.4f} s")
@@ -2223,6 +2384,410 @@ def phase_serving(device, main, main_walls, num_frames=300, h=360, w=640, pan=12
 
     frames = torch.from_numpy(synthetic_clip(num_frames, h, w, pan=pan)).to(device)
     return serving_against("640x360", device, frames, MeshFlowConfig(), main, main_walls)
+
+
+# The host's CUDA calls that launch work, as torch.profiler names them.
+KERNEL_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+# The hand kernels each wrapper counts, by the name the card's trace gives
+# them (kernel B's entry point launches its table kernel and one map_kernel).
+KERNEL_NAMES = {"lk_level": "lk_level_kernel", "lk_band": "lk_band_kernel",
+                "backward_map": "map_kernel", "eig9": "eig9_kernel"}
+KERNEL_NAME_RE = re.compile(
+    r"(?:^|[\s:])(" + "|".join(KERNEL_NAMES.values()) + r")(?:<[^()]*>)?\(")
+
+
+def named_kernels(names) -> dict:
+    """How many of the kernels the card ran (their trace names) were each
+    wrapper's kernel."""
+    wrapper = {kernel: w for w, kernel in KERNEL_NAMES.items()}
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for name in names:
+        match = KERNEL_NAME_RE.search(name or "")
+        if match:
+            counts[wrapper[match.group(1)]] += 1
+    return counts
+
+
+def counted_launches() -> dict:
+    """Every wrapper's launches since ``reset_launches``, eig9's too."""
+    return dict(read_launches(), eig9=eig9_launches())
+
+
+def trace_launches(stab, frames, device, route):
+    """One pass of ``_stabilize_frames`` on `frames` traced stage by stage
+    (MESHFLOW_TRACE_DIR, into a temporary directory under build/ that is
+    removed after): per stage the host's kernel launches, its graph
+    launches, its copies, the kernels the card ran and, by name, those of
+    the hand kernels (``named_kernels``).  Gate: the hand kernels the card
+    ran, by name, equal the wrappers' counts over the same pass, so that a
+    replayed graph's counts are measured, not only recorded.  A whole
+    640x360 pass's traces run to about a GB of JSON, so the graphs phase
+    traces its first 64 frames: one motion block, one metric block, one
+    render block."""
+    import json
+    import shutil
+    import tempfile
+
+    from meshflow_tpu_torch.utils.profiling import StageTimer
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=root)
+    try:
+        reset_launches()
+        with env_set(MESHFLOW_TRACE_DIR=tmp):
+            stab._stabilize_frames(frames, 0, StageTimer(enabled=True, device=device))
+        counted = counted_launches()
+        stages = {}
+        for stage, _ in stab.last_timer.stages:
+            with open(Path(tmp) / (stage.replace(" ", "_") + ".json")) as fh:
+                events = json.load(fh)["traceEvents"]
+            names = [e.get("name") for e in events
+                     if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+            kernels = [e.get("name") for e in events if e.get("cat") == "kernel"]
+            stages[stage] = {
+                "kernel_launches": sum(n in KERNEL_CALLS for n in names),
+                "graph_launches": names.count("cudaGraphLaunch"),
+                "copies": names.count("cudaMemcpyAsync") + names.count("cudaMemsetAsync"),
+                "kernels": len(kernels),
+                "named": named_kernels(kernels),
+            }
+            del events, names, kernels
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    named = {w: sum(s["named"][w] for s in stages.values()) for w in KERNEL_NAMES}
+    check(named == counted, f"traced {route} pass: the card ran {named} of the hand kernels, "
+          f"the wrappers counted {counted}; by stage "
+          f"{ {stage: s['named'] for stage, s in stages.items()} }")
+    return stages
+
+
+def online_traced(device, frames, warm: int = 12, traced: int = 8):
+    """The online step graphed: `warm` frames (the graph captured at the
+    third), then `traced` frames under ``torch.profiler`` (CUDA activity);
+    the hand kernels the card ran, by name, against the wrappers' counts
+    over those frames.  Returns the counts."""
+    import torch
+
+    from meshflow_tpu_torch.online import OnlineMeshFlowStabilizer
+
+    stab = OnlineMeshFlowStabilizer(device=device)
+    for frame in frames[:warm]:
+        stab.process(frame)
+    torch.cuda.synchronize()
+    reset_launches()
+    replays = stab._runner.replays
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for frame in frames[warm:warm + traced]:
+            stab.process(frame)
+        torch.cuda.synchronize()
+    counted = counted_launches()
+    named = named_kernels(e.name for e in prof.events())
+    check(stab._runner.replays - replays == traced and stab._runner.captures == 1,
+          f"graphs online traced: {stab._runner.replays - replays} replays of {traced} frames")
+    check(named == counted, f"graphs online traced: the card ran {named} of the hand kernels "
+          f"in {traced} replayed frames, the wrappers counted {counted}")
+    stab.close()
+    return named
+
+
+def alternate(routes: dict, runs: int) -> dict:
+    """`runs` rounds of each route's `run()` in turn (eager, graphed, eager,
+    ...), every one warm: {route: [wall seconds]}."""
+    walls = {route: [] for route in routes}
+    for _ in range(runs):
+        for route, run in routes.items():
+            walls[route].append(timed_parallel(run)[1])
+    return walls
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def phase_graphs(device, main, run_1080p, online, streamed, runs=2, online_frames=40):
+    """The graphed units against the card run eagerly (``_graphs=False``)
+    on the 640x360 main path, online, the 1080p d=3 path (kernel C) and
+    the stream at CHUNK 64: the crop, every output frame and the three
+    metrics torch.equal across the two routes, the launch counters equal.
+    The graphed runs are the earlier phases' stabilizers, whose graphs are
+    warm (no capture may happen in their passes here); the eager
+    stabilizer of each path runs one untimed pass first (at 1080p, timed
+    as its cold pass).  At 640x360 both routes' warm passes then alternate,
+    `runs` rounds with their stages timed (a synchronize at each stage end;
+    the caching allocator left as it is: no empty_cache between), their
+    walls and peak device memory (allocated above the start and reserved:
+    a graph's working set lives in its pool, reserved but not allocated
+    while it replays).  For each route at 640x360, on the clip's first 64
+    frames: CUDA launches and kernels by stage, the hand kernels counted by
+    name and gated against the wrappers' counts (``trace_launches``), and
+    the card's busy share (``kernel_share``); the graphed route's capture
+    seconds and pool.  Online: the first `online_frames` frames eagerly,
+    then graphed, against the online phase's frames, p50 / p90 and first
+    frames, and the hand kernels of 8 replayed frames by name
+    (``online_traced``).  The stream: each route's first run, then one
+    round of warm runs."""
+    import numpy as np
+    import torch
+
+    from meshflow_tpu_torch import streaming
+    from meshflow_tpu_torch.api import MeshFlowStabilizer
+    from meshflow_tpu_torch.utils.profiling import StageTimer
+
+    frames, ref = main["frames"], main["out"]
+    want = dict(main["launches"], eig9=main["eig9"])
+    stabs = {"eager": MeshFlowStabilizer(device=device, _graphs=False), "graphed": main["stab"]}
+    before = runner_state(main["stab"])
+    for route, stab in stabs.items():
+        reset_launches()
+        out = stab._stabilize_frames(frames, 0)
+        launches = counted_launches()
+        check(all(torch.equal(a, b) for a, b in zip(out, ref))
+              and torch.equal(stab.last_crop, main["stab"].last_crop),
+              f"graphs 640x360: {route} output differs from the main path's")
+        check(launches == want, f"graphs 640x360: {route} launches {launches}, main path {want}")
+        del out
+    rows = {route: {"warm_s": [], "peak_allocated_gib": [], "peak_reserved_gib": []}
+            for route in stabs}
+    for _ in range(runs):
+        for route, stab in stabs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            timer = StageTimer(enabled=True, device=device)
+            _, wall = timed_parallel(lambda: stab._stabilize_frames(frames, 0, timer))
+            row = rows[route]
+            row["warm_s"].append(wall)
+            row["stages"] = {stage: round(sec, 4) for stage, sec in timer.stages}
+            row["peak_allocated_gib"].append(
+                (torch.cuda.max_memory_allocated() - base) / (1 << 30))
+            row["peak_reserved_gib"].append(torch.cuda.max_memory_reserved() / (1 << 30))
+    # both routes' stage traces before the whole-pass profiles: a stage
+    # trace taken right after ``kernel_share``'s profile of a whole pass
+    # missed kernel B's map kernel (H100, torch 2.11), one taken before did not
+    traces = {route: trace_launches(stab, frames[:64], device, route)
+              for route, stab in stabs.items()}
+    for route, stab in stabs.items():
+        wall, busy = kernel_share(device, lambda: stab._stabilize_frames(frames[:64], 0))
+        traced = traces[route]
+        total = {k: sum(t[k] for t in traced.values())
+                 for k in ("kernel_launches", "graph_launches", "copies", "kernels")}
+        row = rows[route]
+        row.update(busy_share=busy / wall, busy_s=busy, traced_wall_s=wall,
+                   launches_by_stage=traced,
+                   launches_64_frames=total["kernel_launches"] + total["graph_launches"],
+                   kernels_64_frames=total["kernels"], copies_64_frames=total["copies"],
+                   median_warm_s=median(row["warm_s"]))
+        print(f"graphs 640x360 {route}: outputs and launches equal to the main path's; warm "
+              f"walls {[round(x, 4) for x in row['warm_s']]} s (alternating with the other "
+              f"route, stages timed); stages (s) {row['stages']}; CUDA launches a pass of the "
+              f"first 64 frames {row['launches_64_frames']} ({total['graph_launches']} graph "
+              f"launches), kernels run {total['kernels']}, copies {total['copies']}; by stage "
+              f"{traced}; hand kernels by name equal to the counters; card busy {busy:.3f} s "
+              f"of {wall:.3f} s ({busy / wall:.4f}) in a pass of the first 64 frames; warm "
+              f"pass peak device memory {[round(x, 3) for x in row['peak_allocated_gib']]} GiB "
+              f"allocated above the start, {[round(x, 3) for x in row['peak_reserved_gib']]} "
+              f"GiB reserved")
+    captures = runner_state(main["stab"])[0] - before[0]
+    check(captures == 0, f"graphs 640x360: {captures} captures in warm graphed passes")
+    print(f"graphs 640x360 graphed: {main['captures']} captures in the main path's cold pass, "
+          f"{main['capture_s']:.3f} s (each a capture and a replay), pool {main['pool_gib']} "
+          f"GiB")
+
+    rounds = {}
+    for graphed in (False, True):
+        route = "graphed" if graphed else "eager"
+        got = phase_online(device, graphed=graphed, name=f"online {route}",
+                           frames=online["frames"][:online_frames])
+        check(all(np.array_equal(a, b) for a, b in zip(got["outs"], online["outs"])),
+              f"graphs online: {route} frames differ from the online phase's")
+        rounds[route] = got
+    rows["online"] = {route: {k: run[k] for k in
+                              ("first_ms", "second_ms", "third_ms", "p50_ms", "p90_ms")}
+                      for route, run in rounds.items()}
+    named = online_traced(device, online["frames"])
+    rows["online"]["traced_named"] = named
+    print(f"graphs online: the first {online_frames} frames torch.equal to the online phase's "
+          f"on both routes, launches as counted there; {rows['online']}; 8 replayed frames "
+          f"ran {named} of the hand kernels by name, as counted")
+
+    with fetch_route("band"):
+        stab = MeshFlowStabilizer(device=device, _graphs=False)
+        reset_launches()
+        out, cold = timed_parallel(lambda: stab._stabilize_frames(run_1080p["frames"], 0))
+        launches = counted_launches()
+        check(all(torch.equal(a, b) for a, b in zip(out, run_1080p["out"])),
+              "graphs 1080p: eager output differs from the graphed one")
+        check(launches == dict(run_1080p["launches"], eig9=run_1080p["eig9"]),
+              f"graphs 1080p: eager launches {launches}, graphed {run_1080p['launches']}")
+        del out, stab
+    rows["1080p"] = {"eager_first_s": cold, "graphed_warm_s": run_1080p["warm_s"]}
+    print(f"graphs 1080p d=3 (kernel C): torch.equal, launches equal ({launches}); eager first "
+          f"pass {cold:.3f} s, graphed warm {run_1080p['warm_s']:.3f} s (1080p phase)")
+
+    clip = streaming.ArrayClip(streamed["clip"])
+    stream_stabs = {"eager": MeshFlowStabilizer(device=device, _graphs=False),
+                    "graphed": MeshFlowStabilizer(device=device)}
+    first = {}
+    for route, stab in stream_stabs.items():
+        got = run_streamed(stab, clip, device)
+        first[route] = got + (eig9_launches(),)
+    check_streamed("graphs stream", first["eager"], first["graphed"])
+    want_eig9 = eig9_count(stream_stabs["eager"].config, len(streamed["clip"]), 64, streamed=True)
+    check(first["eager"][3] == first["graphed"][3] and first["eager"][4] == first["graphed"][4]
+          == want_eig9, f"graphs stream: launches {first['eager'][3:]} and "
+          f"{first['graphed'][3:]}, eig9 reckoned {want_eig9}")
+    walls = alternate({route: (lambda s=s: run_streamed(s, clip, device))
+                       for route, s in stream_stabs.items()}, 1)
+    stream_stabs["graphed"].close()
+    rows["stream"] = {"first_s": {route: first[route][2] for route in first}, "warm_s": walls}
+    print(f"graphs stream CHUNK 64: frames torch.equal, metrics and launches equal (eig9 "
+          f"{want_eig9}); first runs {rows['stream']['first_s']} s (the graphed one captures); "
+          f"warm walls alternating {walls}")
+    return rows
+
+
+# The 640x360 main path's digest (crop, cropping ratio, distortion,
+# stability) while the DLT took its null vector from eigh on the card.
+DIGEST_BEFORE_EIG9 = ([4, 4, 635, 355], (0.965138, 0.989568, 0.004488))
+# NVIDIA's H100 SXM data sheet: float64 on the tensor cores (34 TFLOP/s
+# outside them), the card's highest float64 rate.
+H100_F64_FLOPS = 67e12
+# Float64 operations the function needs for one 9x9 symmetric matrix,
+# whatever the algorithm: its Householder reduction to tridiagonal form
+# (4 n^3 / 3) and one eigenvector carried back through the reflectors
+# (4 n^2); the tridiagonal eigenproblem's O(n) a step is left out, so the
+# count is a floor.
+EIG9_FUNCTION_OPS = 4 * 9**3 // 3 + 4 * 9**2
+
+
+def eig9_bound(n: int):
+    """(bound_ms, bound_by) of the least eigenvector of `n` 9x9 float64
+    symmetric matrices: each matrix read once (81 doubles), its vector
+    written once (9), ``EIG9_FUNCTION_OPS`` operations a matrix at the
+    card's float64 peak."""
+    t_ops, t_bytes = n * EIG9_FUNCTION_OPS / H100_F64_FLOPS, n * 90 * 8 / H100_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_eig9(device, main):
+    """eig9 against eigh on the DLT inputs of one 63-pair motion block and
+    one 64-frame metric block of the 640x360 clip, recorded as the eager
+    route reaches ``dlt_homography`` (each call one launch: 256 point sets a
+    batch's RANSAC fits, 16 its global fits).  Gates: where eigh's
+    eigenvalue gap exceeds 1e-9 ||N||_F, the float32 homography within
+    1e-5 relative of eigh's; everywhere v'Nv <= lambda_0 + 1e-12 ||N||_F
+    and finite vectors; the kernel equal bit for bit to its PyTorch
+    emulation (``null_vector_jacobi``); each batch's match with eig9 and
+    with eigh giving the same ok, and the same inlier masks on the pairs
+    whose global fit is degenerate.  Times at the RANSAC fit's launch (256
+    matrices), the kernel's and eigh's taken the same two ways: device ms
+    (``device_ms``: CUDA events around calls queued behind a spin kernel;
+    eigh's host sync drains that queue at its first call, so its reading
+    holds its sync) and host-clock ms per synchronized call; the bound from
+    what the function needs (``eig9_bound``); the sweeps the matrices took
+    (the emulation's count, the kernel being equal to it); whether the
+    main path's digest moved."""
+    import torch
+
+    from meshflow_tpu_torch.kernels import eig9_cuda, homography
+    from meshflow_tpu_torch.kernels.fast import Keypoints
+    from meshflow_tpu_torch.metrics import quality
+    from meshflow_tpu_torch.motion import features
+    from meshflow_tpu_torch.motion import pipeline as mp
+    from meshflow_tpu_torch.utils import prng
+
+    stab, config = main["stab"], main["stab"].config
+    frames = main["frames"][:64]
+    recorded = []
+    dlt = homography.dlt_homography
+
+    def record(early, late, weights):
+        recorded.append((early.clone(), late.clone(), weights.clone()))
+        return dlt(early, late, weights)
+
+    homography.dlt_homography = record
+    try:
+        kps, _ = mp.prepare_frames(frames, config)
+        mp.pair_velocities(kps, frames, prng.fold_in(stab._key, 1), 0, config, 360, 640)
+        cropped = main["out"][0][:64]
+        quality.cropping_and_distortion(kps, frames, cropped, prng.fold_in(stab._key, 2), 0,
+                                        config, 360, 640)
+    finally:
+        homography.dlt_homography = dlt
+    check(len(recorded) == eig9_count(config, 64, 64), f"eig9: {len(recorded)} DLT calls")
+    worst, max_err, degenerate, sweeps_all = 0.0, 0.0, 0, []
+    for early, late, weights in recorded:
+        normal, et, lt = homography.dlt_normal(early, late, weights)
+        normal = normal.reshape(-1, 9, 9)
+        vec = eig9_cuda.null_vector(normal)
+        emu, sweeps = eig9_cuda.null_vector_jacobi(normal, return_sweeps=True)
+        check(torch.equal(vec, emu), "eig9: the kernel differs from its emulation")
+        w, vecs = torch.linalg.eigh(normal)
+        fro = torch.linalg.matrix_norm(normal)
+        rq = torch.einsum("bi,bij,bj->b", vec, normal, vec)
+        check(bool(torch.isfinite(vec).all()) and bool((rq <= w[:, 0] + 1e-12 * fro).all()),
+              "eig9: a vector is not finite or its Rayleigh quotient exceeds the gate")
+        gapped = (w[:, 1] - w[:, 0]) > 1e-9 * fro
+        degenerate += int((~gapped).sum())
+        h = homography.dlt_from_null_vector(vec, et, lt).reshape(-1, 3, 3)
+        h_eigh = homography.dlt_from_null_vector(vecs[..., 0], et, lt).reshape(-1, 3, 3)
+        err = (h - h_eigh).abs().flatten(-2).amax(-1)
+        if bool(gapped.any()):
+            rel = (err / h_eigh.abs().flatten(-2).amax(-1))[gapped]
+            worst = max(worst, float(rel.max()))
+            max_err = max(max_err, float(err[gapped].max()))
+        sweeps_all.append(sweeps)
+    check(worst <= 1e-5, f"eig9: homographies {worst} relative off eigh's")
+    sweeps = torch.cat(sweeps_all)
+
+    late, tracked = mp.track_pairs(kps, frames, config, 360, 640)
+    keys = prng.fold_in(prng.fold_in(stab._key, 1), torch.arange(16, device=device))
+    batch = (kps.positions[:16], late[:16], tracked[:16], keys)
+    with_eig9 = features.match_from_tracks(*batch, config)
+    kernel = eig9_cuda.null_vector
+    eig9_cuda.null_vector = eig9_cuda.null_vector_plain
+    try:
+        with_eigh = features.match_from_tracks(*batch, config)
+    finally:
+        eig9_cuda.null_vector = kernel
+    normal = homography.dlt_normal(with_eigh.early, with_eigh.late,
+                                   with_eigh.inlier.to(torch.float32))[0]
+    w = torch.linalg.eigvalsh(normal)
+    flat = (w[:, 1] - w[:, 0]) <= 1e-9 * torch.linalg.matrix_norm(normal)
+    mask_diff = int((with_eig9.inlier != with_eigh.inlier).sum())
+    check(torch.equal(with_eig9.ok, with_eigh.ok), "eig9: a batch's ok differs from eigh's")
+    check(bool(torch.isfinite(with_eig9.homography).all()), "eig9: a homography is not finite")
+    check(torch.equal(with_eig9.inlier[flat], with_eigh.inlier[flat]),
+          "eig9: inlier masks differ from eigh's on a degenerate global fit")
+
+    normal = homography.dlt_normal(*recorded[0])[0].reshape(-1, 9, 9)
+    launch_sweeps = eig9_cuda.null_vector_jacobi(normal, return_sweeps=True)[1]
+    ms = device_ms(lambda: eig9_cuda.null_vector(normal), launches=50)
+    eigh_ms = device_ms(lambda: torch.linalg.eigh(normal), launches=50)
+    host_ms = host_clock_ms(lambda: eig9_cuda.null_vector(normal))
+    eigh_host_ms = host_clock_ms(lambda: torch.linalg.eigh(normal))
+    bound_ms, bound_by = eig9_bound(normal.shape[0])
+    crop, metrics = main["crop"], tuple(round(m, 6) for m in main["metrics"])
+    moved = (crop, metrics) != DIGEST_BEFORE_EIG9
+    print(f"eig9: {len(recorded)} launches' DLT inputs ({sweeps.numel()} matrices, "
+          f"{degenerate} with eigh's gap <= 1e-9 ||N||_F) bit for bit its emulation; float32 "
+          f"H within {worst:.3e} relative of eigh's (max abs {max_err:.3e}) where gapped; "
+          f"Rayleigh gate held; sweeps mean {float(sweeps.float().mean()):.3f}, max "
+          f"{int(sweeps.max())}; first motion batch: ok equal, {mask_diff} of "
+          f"{with_eig9.inlier.numel()} inlier entries differ ({int(flat.sum())} degenerate "
+          f"global fits, equal); at {normal.shape[0]} matrices "
+          f"({launch_sweeps.float().mean():.3f} sweeps a matrix): device ms kernel {ms:.5f}, eigh {eigh_ms:.5f}; host-clock ms a "
+          f"synchronized call kernel {host_ms:.5f}, eigh {eigh_host_ms:.5f}; bound "
+          f"{bound_ms:.6f} ms ({bound_by}), the kernel at {ms / bound_ms:.0f}x it; 640x360 "
+          f"digest {crop} {metrics} "
+          f"{'moved from' if moved else 'unchanged from'} {DIGEST_BEFORE_EIG9}")
+    return {"launches": main["eig9"], "max_abs_err": max_err, "ms": ms, "plain_ms": eigh_ms,
+            "library_ms": eigh_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "host_ms": host_ms, "library_host_ms": eigh_host_ms,
+            "max_rel_err": worst, "digest_moved": moved}
 
 
 def halo_inputs(config, num_frames: int, device):
@@ -2627,9 +3192,10 @@ def ptxas_report(log: str, *match: str) -> list[str]:
     return out
 
 
-TREE_PARTS = ("lk", "bmap", "main", "probes", "batch", "sharded")
+TREE_PARTS = ("lk", "bmap", "main", "probes", "batch", "sharded", "online")
 # "batch" and "sharded" need a tree whose parallel paths run worker
-# processes (``parallel.pipeline.smooth_sharded``): asked for by name
+# processes (``parallel.pipeline.smooth_sharded``), "online" is host-bound
+# and long: asked for by name
 DEFAULT_PARTS = TREE_PARTS[:4]
 # The probe D launches that the "probes" part times, (kernel, B); probe E
 # is timed at the probe's r0
@@ -2722,7 +3288,11 @@ def tree_run(tree: Path, parts=DEFAULT_PARTS, warm_passes: int = 3) -> int:
     ``stabilize_sharded`` on 3840x2160 x 16 frames over two worker
     processes of the card and the halo Jacobi over 3600 frames on four
     (``smooth_sharded``), a cold and `warm_passes` warm walls each, and a
-    digest of their outputs.  Always the ptxas lines of the tree's LK,
+    digest of their outputs.  "online": ``OnlineMeshFlowStabilizer`` over
+    the 120-frame 640x360 clip, p50 and p90 of frames 10-119 and a digest
+    of its frames.  In a tree whose stabilizers take ``_graphs``, "main"
+    and "online" run the card eagerly too (``main_eager``,
+    ``online_eager``), after the graphed run.  Always the ptxas lines of the tree's LK,
     backward-map and D and E probe kernels (when its build keeps them)."""
     sys.path.insert(0, str(tree))
     import torch
@@ -2812,6 +3382,34 @@ def tree_run(tree: Path, parts=DEFAULT_PARTS, warm_passes: int = 3) -> int:
         result.update(main_path=digest(out[0], stab.last_crop), crop=stab.last_crop.tolist(),
                       metrics=[float(x) for x in out[1:]], cold_s=seconds[0],
                       warm_s=seconds[1:])
+        if "_graphs" in inspect.signature(MeshFlowStabilizer).parameters:
+            del stab
+            stab = MeshFlowStabilizer(device="cuda", _graphs=False)
+            seconds = [timed_parallel(lambda: stab._stabilize_frames(frames, 0))[1]
+                       for _ in range(1 + warm_passes)]
+            result["main_eager"] = {"cold_s": seconds[0], "warm_s": seconds[1:]}
+    if "online" in parts:
+        import numpy as np
+
+        from meshflow_tpu_torch.online import OnlineMeshFlowStabilizer
+
+        frames = synthetic_clip(120, 360, 640, pan=60)
+        routes = {"online": {}}
+        if "_graphs" in inspect.signature(OnlineMeshFlowStabilizer).parameters:
+            routes["online_eager"] = {"_graphs": False}
+        for name, kwargs in routes.items():
+            stab = OnlineMeshFlowStabilizer(device="cuda", **kwargs)
+            times, outs = [], []
+            for frame in frames:
+                out, wall = timed_parallel(lambda: stab.process(frame))
+                times.append(wall * 1e3)
+                outs.append(out)
+            steady = np.asarray(times[10:])
+            result[name] = {"p50_ms": float(np.percentile(steady, 50)),
+                            "p90_ms": float(np.percentile(steady, 90)),
+                            "first_ms": times[:3],
+                            "digest": digest(*(torch.from_numpy(o) for o in outs))}
+            del stab
     print(json.dumps(result))
     return 0
 
@@ -2862,7 +3460,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--compare", metavar="DIR", type=Path,
                         help="time the checkout in DIR against this one (see above)")
-    parser.add_argument("--tree", metavar="DIR", type=Path, help=argparse.SUPPRESS)
+    parser.add_argument("--tree", metavar="DIR", type=Path,
+                        help="run the parts of the checkout in DIR alone and print their "
+                             "JSON line (no comparison: for trees whose outputs differ)")
     parser.add_argument("--parts", default=",".join(DEFAULT_PARTS),
                         help="with --compare or --tree: the parts to run, of "
                              f"{', '.join(TREE_PARTS)} (default: {', '.join(DEFAULT_PARTS)})")
@@ -2909,33 +3509,71 @@ def main() -> int:
 
     device = "cuda"
     os.environ.pop("MESHFLOW_LK_FETCH", None)  # the default route, onehot
+    clock = [time.perf_counter(), time.perf_counter()]
+
+    def lap(name):
+        """Print the phase's seconds and the script's so far."""
+        now = time.perf_counter()
+        print(f"time: {name} {now - clock[1]:.1f} s (script {now - clock[0]:.1f} s)", flush=True)
+        clock[1] = now
+
     cases = lk_cases(device)
     a = phase_kernel_a(device, cases)
+    lap("kernel_a")
     b = phase_kernel_b(device)
+    lap("kernel_b")
     c = phase_kernel_c(device, cases["motion"])
+    lap("kernel_c")
     g = phase_gray_kernels(device)
-    launches, cold_s, warm_s, main_out = phase_main_path(device)
-    launches_1080p, first_block, warm_1080p_s, stages_1080p = phase_1080p(device)
+    lap("gray_kernels")
+    launches, cold_s, warm_s, main_out, main_run = phase_main_path(device)
+    lap("main_path")
+    launches_1080p, first_block, warm_1080p_s, stages_1080p, run_1080p = phase_1080p(device)
+    lap("1080p")
     phase_1080p_control(device, first_block, pan=360 * (64 - 1) / (300 - 1))
+    lap("1080p_control")
     online = phase_online(device)
+    lap("online")
     phase_small_agreement(device)
+    lap("small_agreement")
     native_ok = phase_native_io()
+    lap("native_io")
     streamed = phase_streamed(device)
+    lap("streamed")
+    graphed = phase_graphs(device, main_run, run_1080p, online, streamed)
+    lap("graphs")
+    del run_1080p, first_block
+    eig9 = phase_eig9(device, main_run)
+    lap("eig9")
     phase_checkpoint(device, streamed)
+    lap("checkpoint")
     memory = phase_memory(device)
+    lap("memory")
     gray = phase_gray(device, (launches, cold_s, warm_s), warm_1080p_s, memory, online)
+    lap("gray")
     sk = phase_sharded_kernels(device)
+    lap("sharded_kernels")
     sharded = phase_sharded(device)
+    lap("sharded")
     batch = phase_batch(device)
+    lap("batch")
     gk = phase_geometry_kernels(device)
+    lap("geometry_kernels")
     uhd = phase_4k(device)
+    lap("4k")
     mesh64 = phase_mesh64(device, stages_1080p)
+    lap("mesh64")
     hd = phase_geometry(device, "720p", MeshFlowConfig(), 300, 720, 1280, pan=240)
+    lap("geometry")
     serving = phase_serving(device, main_out, (cold_s, warm_s))
+    lap("serving")
     del main_out
     sharded_4k = phase_sharded_4k(device)
+    lap("sharded_4k")
     phase_file(device, native_ok)
+    lap("file")
     probes = phase_probes(device)
+    lap("probes")
 
     def geometry_launches(name):
         return {"launches_4k": uhd["launches"][name],
@@ -3004,11 +3642,19 @@ def main() -> int:
          **{k: c[k] for k in LK_KEYS},
          **{f"{k}_gray": g["band"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          **geometry_row("C", "4k")},
+        {"name": "eig9", "route": "cuda",
+         "source": "meshflow_tpu_torch/csrc/eig9.cu",
+         "replaces": "no TPU kernel: torch.linalg.eigh in meshflow_tpu_torch/kernels/"
+                     "homography.py dlt_homography (the JAX package's float32 SVD, "
+                     "meshflow_tpu/kernels/homography.py:74)",
+         "launches_online": online["eig9"], "max_rel_err": eig9.pop("max_rel_err"),
+         "digest_moved": eig9.pop("digest_moved"), **eig9},
     ] + [
         {"name": name, "route": "cuda",
          "source": f"meshflow_tpu_torch/csrc/{PROBE_KERNELS[name][0]}", **row}
         for name, row in probes.items()
     ]
+    print(json.dumps({"graphs": graphed}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

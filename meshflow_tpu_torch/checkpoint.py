@@ -34,7 +34,7 @@ FORMAT_VERSION = 1
 
 # Bump when a tracker's numerics change: the checkpoint caches tracker
 # outputs, so a stale revision must miss, not silently hit.
-LK_KERNEL_REVISION = 1
+LK_KERNEL_REVISION = 2  # 2: the card's DLT null vector from the eig9 kernel
 
 
 class MotionCheckpoint(NamedTuple):

@@ -66,7 +66,8 @@ def online_state_from_numpy(
 ):
     """A JAX ``OnlineState`` as the port's: the previous frame's keypoints
     ((S, K) positions, scores, valid), both (OMEGA+1, R+1, C+1, 2) windows
-    and the step count are carried across; the previous frame's tile
+    and the step count (a device tensor, as the port keeps it) are
+    carried across; the previous frame's tile
     planes are rebuilt from ``prev_frame`` ((H, W, 3) uint8 BGR; gray
     planes under track_planes="gray") by the port's ``online_prepare``
     (the JAX state's pyramid layout depends on its tracker backend)."""
@@ -81,5 +82,5 @@ def online_state_from_numpy(
         prev_kps=keypoints_from_numpy(positions, scores, valid, device=device),
         unstab_window=torch.as_tensor(np.array(unstab_window, np.float32), device=device),
         stab_window=torch.as_tensor(np.array(stab_window, np.float32), device=device),
-        step=int(step),
+        step=torch.tensor(int(step), dtype=torch.int64, device=device),
     )

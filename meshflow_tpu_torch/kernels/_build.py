@@ -149,6 +149,8 @@ def library() -> ctypes.CDLL:
     lib.meshflow_bmap.restype = i
     lib.meshflow_bmap_occupancy.argtypes = [i, i, ip, ip, ip]
     lib.meshflow_bmap_occupancy.restype = i
+    lib.meshflow_eig9.argtypes = [p, p, i, p]  # normal, out, batch, stream
+    lib.meshflow_eig9.restype = i
     # probes D-G (csrc/probe_*.cu); every entry point ends with the stream
     for name, args in {
         "meshflow_probe_dynslice_copy": [p, p, p, p, i, i, i, i],

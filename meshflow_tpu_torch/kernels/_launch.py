@@ -4,6 +4,8 @@ of its launches."""
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 
 import torch
@@ -11,13 +13,41 @@ import torch
 from meshflow_tpu_torch.kernels import _build
 
 
+# The launches of a CUDA graph's capture, while one is recorded: a
+# captured launch runs only when the graph replays.
+_captured: collections.Counter | None = None
+
+
 def count(wrapper) -> None:
-    """Add one to `wrapper.launches` where the wrapper launches its kernel.
+    """Add one to `wrapper.launches` where the wrapper launches its kernel,
+    or, inside ``recording()``, to the capture's count instead (the graph
+    runner adds that count at every replay, ``utils/graphs.py``).
     No lock: only a process's calling thread launches (the stream's decode
     and encode threads launch nothing), and the batch's workers and the
     sharded path's shards are processes of their own, whose counts the
     parent adds in as their answers arrive (``parallel/workers.py``)."""
-    wrapper.launches += 1
+    if _captured is not None:
+        _captured[wrapper] += 1
+    else:
+        wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the block's launches into the Counter it yields, not into the
+    wrappers: the launches of a graph's capture."""
+    global _captured
+    saved, _captured = _captured, collections.Counter()
+    try:
+        yield _captured
+    finally:
+        _captured = saved
+
+
+def add(launched: collections.Counter) -> None:
+    """Add a recorded count to the wrappers: a replay's launches."""
+    for wrapper, n in launched.items():
+        wrapper.launches += n
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

@@ -14,6 +14,7 @@ ties, so the port takes a stable descending sort, which gives the same
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -87,6 +88,18 @@ def _dead_zone_mask(
     return y_ok[:, None] & x_ok[None, :]
 
 
+@functools.cache
+def _dead_zone(
+    frame_height: int, frame_width: int, sub_h: int, sub_w: int, device: torch.device
+) -> torch.Tensor:
+    """``_dead_zone_mask`` on `device`, made once a geometry and device and
+    kept (read only): a CUDA graph that detects copies nothing from the
+    host."""
+    return torch.from_numpy(_dead_zone_mask(frame_height, frame_width, sub_h, sub_w)).to(
+        device
+    )
+
+
 def detect_keypoints(
     gray: torch.Tensor,
     config: MeshFlowConfig,
@@ -102,9 +115,7 @@ def detect_keypoints(
     device = gray.device
 
     score = fast_score_map(gray)
-    inside = torch.from_numpy(
-        _dead_zone_mask(frame_height, frame_width, sub_h, sub_w)
-    ).to(device)
+    inside = _dead_zone(frame_height, frame_width, sub_h, sub_w, device)
     score = torch.where(inside, score, torch.zeros_like(score))
 
     corner = score >= config.fast_threshold

@@ -13,18 +13,22 @@
 Every function takes leading batch dimensions; point sets are fixed
 capacity with weight-0 (or invalid) rows instead of ragged arrays.
 
-The DLT's null vector comes from the 9x9 normal matrix, formed and
-eigendecomposed in float64.  The JAX package takes the SVD of the
+The DLT's null vector comes from the 9x9 normal matrix, formed in
+float64: ``kernels/eig9_cuda.null_vector`` (the eig9 kernel on the card,
+``torch.linalg.eigh`` on the CPU).  The JAX package takes the SVD of the
 weighted design matrix in float32 to avoid squaring its condition
 number; float64 leaves that squared condition number far inside its
-precision, and a batched 9x9 symmetric eigensolve runs as one call on
-the card where a batched SVD of (2N, 9) matrices does not.
+precision, and a batched 9x9 symmetric eigensolve runs as one launch on
+the card where a batched SVD of (2N, 9) matrices does not.  ``eigh``
+synchronizes the host with the card, so the card takes the eig9 kernel,
+which no CUDA graph has to wait on.
 """
 
 from __future__ import annotations
 
 import torch
 
+from meshflow_tpu_torch.kernels import eig9_cuda
 from meshflow_tpu_torch.utils import prng
 
 
@@ -80,11 +84,10 @@ def _similarity_inverse(scale, centroid) -> torch.Tensor:
     return t
 
 
-def dlt_homography(
-    early: torch.Tensor, late: torch.Tensor, weights: torch.Tensor
-) -> torch.Tensor:
-    """Weighted normalized DLT: (..., N, 2) x2, (..., N) -> (..., 3, 3) f32
-    normalized to H[2,2] = 1."""
+def dlt_normal(early: torch.Tensor, late: torch.Tensor, weights: torch.Tensor):
+    """The weighted normalized DLT's 9x9 normal matrix: (..., N, 2) x2,
+    (..., N) -> (normal (..., 9, 9) float64, (se, ce), (sl, cl)), the two
+    Hartley similarities' scales and centroids."""
     e64, l64, w64 = early.double(), late.double(), weights.double()
     en, (se, ce) = _normalize_points(e64, w64)
     ln, (sl, cl) = _normalize_points(l64, w64)
@@ -100,11 +103,26 @@ def dlt_homography(
     )
     normal = torch.einsum("...n,...ni,...nj->...ij", w64, row1, row1)
     normal = normal + torch.einsum("...n,...ni,...nj->...ij", w64, row2, row2)
-    _, vecs = torch.linalg.eigh(normal)
-    hn = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))
+    return normal, (se, ce), (sl, cl)
+
+
+def dlt_from_null_vector(vec: torch.Tensor, early_t, late_t) -> torch.Tensor:
+    """(..., 9) float64 null vector of ``dlt_normal`` and its similarities
+    -> (..., 3, 3) float32 homography normalized to H[2,2] = 1."""
+    (se, ce), (sl, cl) = early_t, late_t
+    hn = vec.reshape(vec.shape[:-1] + (3, 3))
     h = _similarity_inverse(sl, cl) @ hn @ _similarity(se, ce)
     h = h / _safe(h[..., 2:3, 2:3], 1e-10)
     return h.float()
+
+
+def dlt_homography(
+    early: torch.Tensor, late: torch.Tensor, weights: torch.Tensor
+) -> torch.Tensor:
+    """Weighted normalized DLT: (..., N, 2) x2, (..., N) -> (..., 3, 3) f32
+    normalized to H[2,2] = 1."""
+    normal, early_t, late_t = dlt_normal(early, late, weights)
+    return dlt_from_null_vector(eig9_cuda.null_vector(normal), early_t, late_t)
 
 
 def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

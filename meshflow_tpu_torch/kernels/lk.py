@@ -30,6 +30,8 @@ of operations as the kernel.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -57,11 +59,17 @@ def _reflect_indices(h: int, w: int, pad: int):
     return iy, ix
 
 
+@functools.cache
+def _reflect_index_tensors(h: int, w: int, pad: int, device: torch.device):
+    """``_reflect_indices`` on `device`, made once a shape and device and
+    kept (read only): a CUDA graph that pads copies nothing from the host."""
+    iy, ix = _reflect_indices(h, w, pad)
+    return torch.from_numpy(iy).to(device), torch.from_numpy(ix).to(device)
+
+
 def reflect_pad_level(img: torch.Tensor, pad: int = PAD) -> torch.Tensor:
     """REFLECT_101-pad the last two dims of any tensor by `pad`."""
-    iy, ix = _reflect_indices(img.shape[-2], img.shape[-1], pad)
-    iy = torch.from_numpy(iy).to(img.device)
-    ix = torch.from_numpy(ix).to(img.device)
+    iy, ix = _reflect_index_tensors(img.shape[-2], img.shape[-1], pad, img.device)
     return img.index_select(-2, iy).index_select(-1, ix)
 
 

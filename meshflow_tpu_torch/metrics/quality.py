@@ -8,7 +8,10 @@
   matched with the full RANSAC + least-squares stack, and scored as
   1 / (H00 * H11) and the affine eigenvalue ratio; the caller takes the
   ratio MEAN and the distortion MIN over frames.  Frames whose matching
-  fails score 1 and 1.
+  fails score 1 and 1.  Frames are matched and scored in batches of
+  PAIR_BATCH (``metric_batch``, the JAX package's jitted
+  ``cropping_and_distortion_scanned``), padded as the motion batches are
+  and on the card each one replay of a CUDA graph of the caller's runner.
 * stability: per-vertex FFT energy of the differenced displacement
   profiles, fraction in bins [1:6), x and y averaged, then vertices.
 """
@@ -24,9 +27,11 @@ from meshflow_tpu_torch.motion.features import match_from_tracks
 from meshflow_tpu_torch.motion.pipeline import (
     PAIR_BATCH,
     pack_tile_planes_u8,
+    pad_rows,
+    padded_count,
     track_planes,
 )
-from meshflow_tpu_torch.utils import prng
+from meshflow_tpu_torch.utils import graphs, prng
 
 
 def stability_score(stab_disp: torch.Tensor) -> torch.Tensor:
@@ -52,9 +57,11 @@ def cropping_and_distortion(
     config: MeshFlowConfig,
     frame_height: int,
     frame_width: int,
+    runner: graphs.GraphRunner | None = None,
 ):
     """Per-frame (ratios (F,), distortions (F,)) of a block of frames;
-    frame t draws its RANSAC samples from fold_in(key, t + key_offset)."""
+    frame t draws its RANSAC samples from fold_in(key, t + key_offset).
+    The batches run through `runner` (None: directly)."""
     device = unstab_frames.device
     max_level = config.lk_max_level(frame_height, frame_width)
     planes_un, dims = pack_tile_planes_u8(unstab_frames, config, max_level)
@@ -64,15 +71,27 @@ def cropping_and_distortion(
         dims, config, frame_height, frame_width, shifted=False,
     )
     num_frames = unstab_frames.shape[0]
-    keys = prng.fold_in(key, torch.arange(num_frames, device=device) + key_offset)
+    rows = padded_count(num_frames)
+    keys = prng.fold_in(key, torch.arange(rows, device=device) + key_offset)
+    early = pad_rows(unstab_keypoints.positions, rows)
+    late_pos, tracked = pad_rows(late_pos, rows), pad_rows(tracked, rows)
     ratios, distortions = [], []
-    for s in range(0, num_frames, PAIR_BATCH):
-        sl = slice(s, min(s + PAIR_BATCH, num_frames))
-        match = match_from_tracks(
-            unstab_keypoints.positions[sl], late_pos[sl], tracked[sl], keys[sl], config
+    for s in range(0, rows, PAIR_BATCH):
+        sl = slice(s, s + PAIR_BATCH)
+        r, d = graphs.run(
+            runner, metric_batch, (early[sl], late_pos[sl], tracked[sl], keys[sl]), config
         )
-        h = match.homography
-        one = torch.ones_like(h[:, 0, 0])
-        ratios.append(torch.where(match.ok, 1.0 / (h[:, 0, 0] * h[:, 1, 1]), one))
-        distortions.append(torch.where(match.ok, affine_eigen_ratio(h), one))
-    return torch.cat(ratios), torch.cat(distortions)
+        ratios.append(r)
+        distortions.append(d)
+    return torch.cat(ratios)[:num_frames], torch.cat(distortions)[:num_frames]
+
+
+def metric_batch(early, late, tracked, keys, config: MeshFlowConfig):
+    """The metric batch, one graph on the card: match a batch of frames
+    into their cropped outputs (early, late (T, S, K, 2), tracked (T, S, K),
+    keys (T, 2)) and score them: (ratios (T,), distortions (T,))."""
+    match = match_from_tracks(early, late, tracked, keys, config)
+    h = match.homography
+    one = torch.ones_like(h[:, 0, 0])
+    ratio = torch.where(match.ok, 1.0 / (h[:, 0, 0] * h[:, 1, 1]), one)
+    return ratio, torch.where(match.ok, affine_eigen_ratio(h), one)

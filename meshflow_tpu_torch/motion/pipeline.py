@@ -3,9 +3,14 @@
 
 Per block of frames: pack the uint8 tile pyramids once, track every
 adjacent pair's keypoints with the LK kernel that MESHFLOW_LK_FETCH names
-(kernel A or C, one launch per pyramid level for all pairs), then match and propagate the pairs in batches, and integrate
-the per-pair vertex velocities with a cumulative sum.  The JAX package's
-``jit``/``scan`` become Python loops over blocks of pairs.
+(kernel A or C, one launch per pyramid level for all pairs), then match and
+propagate the pairs in batches of ``PAIR_BATCH``, and integrate the
+per-pair vertex velocities with a cumulative sum.  The JAX package's jitted
+scan of ``match_from_tracks`` + ``vertex_velocities`` becomes a loop over
+batches, on the card each one replay of a CUDA graph of the caller's
+runner (``utils/graphs.GraphRunner``).  Every batch is padded to ``PAIR_BATCH``
+pairs, so a clip geometry has one batch shape: the padding pairs track
+nothing, draw from the keys past the block's last pair, and are dropped.
 """
 
 from __future__ import annotations
@@ -22,12 +27,24 @@ from meshflow_tpu_torch.kernels.lk_cuda import lk_track_parallel
 from meshflow_tpu_torch.kernels.pyramid import pyr_down
 from meshflow_tpu_torch.motion.features import match_from_tracks
 from meshflow_tpu_torch.motion.propagate import vertex_velocities
-from meshflow_tpu_torch.utils import grid, prng
+from meshflow_tpu_torch.utils import grid, graphs, prng
 
 _DETECT_PIXEL_BUDGET = 32 * 640 * 360  # pixels per FAST call
 # Pairs matched and propagated together: bounds the (pairs, V, S*K)
 # ellipse-median tensors to ~2 GB at the default geometry.
 PAIR_BATCH = 16
+
+
+def padded_count(count: int) -> int:
+    """`count` rounded up to whole batches of PAIR_BATCH."""
+    return -(-count // PAIR_BATCH) * PAIR_BATCH
+
+
+def pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """`t` with zero rows (False for bool: untracked) appended up to `rows`."""
+    if t.shape[0] == rows:
+        return t
+    return torch.cat([t, t.new_zeros((rows - t.shape[0],) + t.shape[1:])])
 
 
 class MotionEstimate(NamedTuple):
@@ -94,6 +111,16 @@ def pack_tile_planes_u8(frames: torch.Tensor, config: MeshFlowConfig, max_level:
     return tuple(planes), tuple(dims)
 
 
+def subframe_offsets_f32(
+    config: MeshFlowConfig, frame_height: int, frame_width: int, device
+) -> torch.Tensor:
+    """The subframes' top-left corners as float32 (1, S, 1, 2), the shape
+    ``track_planes`` subtracts from frame-relative positions."""
+    return grid.subframe_offsets(config, frame_height, frame_width, device=device).to(
+        torch.float32
+    )[None, :, None, :]
+
+
 def track_planes(
     positions: torch.Tensor,
     valid: torch.Tensor,
@@ -104,12 +131,14 @@ def track_planes(
     frame_height: int,
     frame_width: int,
     shifted: bool,
+    offsets: torch.Tensor | None = None,
 ):
     """LK-track frame-relative keypoints (T, S, K, 2) through tile planes;
-    returns (late positions, frame-relative; tracked (T, S, K))."""
-    offsets = grid.subframe_offsets(
-        config, frame_height, frame_width, device=positions.device
-    ).to(torch.float32)[None, :, None, :]
+    returns (late positions, frame-relative; tracked (T, S, K)).  offsets:
+    ``subframe_offsets_f32`` made beforehand (a captured step copies
+    nothing from the host), else made here."""
+    if offsets is None:
+        offsets = subframe_offsets_f32(config, frame_height, frame_width, positions.device)
     late_local, tracked = lk_track_parallel(
         prev_planes,
         next_planes,
@@ -141,6 +170,28 @@ def track_pairs(
     )
 
 
+def motion_batch(
+    early: torch.Tensor,
+    late: torch.Tensor,
+    tracked: torch.Tensor,
+    keys: torch.Tensor,
+    vgrid: torch.Tensor,
+    config: MeshFlowConfig,
+    frame_height: int,
+    frame_width: int,
+):
+    """The motion batch, one graph on the card: match and propagate a batch
+    of pairs (early, late (T, S, K, 2), tracked (T, S, K), keys (T, 2),
+    vgrid the vertex grid).  Returns (velocities (T, R+1, C+1, 2),
+    homographies (T, 3, 3), ok (T,))."""
+    match = match_from_tracks(early, late, tracked, keys, config)
+    velocities = vertex_velocities(
+        match.early, match.late, match.inlier, match.homography, vgrid,
+        config, frame_height, frame_width,
+    )
+    return velocities, match.homography, match.ok
+
+
 def pair_velocities(
     keypoints: Keypoints,
     frames_bgr: torch.Tensor,
@@ -149,34 +200,36 @@ def pair_velocities(
     config: MeshFlowConfig,
     frame_height: int,
     frame_width: int,
+    runner: graphs.GraphRunner | None = None,
 ):
     """Track, match and propagate the F-1 adjacent pairs of a frame block.
 
     Pair t draws its RANSAC samples from fold_in(key, t + key_offset).
-    Returns (velocities (F-1, R+1, C+1, 2), homographies (F-1, 3, 3),
-    ok (F-1,))."""
+    The pairs are matched in batches of PAIR_BATCH, the last one padded,
+    each through `runner` (a CUDA graph a batch shape on the card; None
+    runs them directly).  Returns (velocities (F-1, R+1, C+1, 2),
+    homographies (F-1, 3, 3), ok (F-1,))."""
     device = frames_bgr.device
     vgrid = grid.vertex_grid(config, frame_height, frame_width, device=device)
     late_pos, tracked = track_pairs(
         keypoints, frames_bgr, config, frame_height, frame_width
     )
     num_pairs = frames_bgr.shape[0] - 1
-    keys = prng.fold_in(key, torch.arange(num_pairs, device=device) + key_offset)
+    rows = padded_count(num_pairs)
+    keys = prng.fold_in(key, torch.arange(rows, device=device) + key_offset)
+    early = pad_rows(keypoints.positions[:num_pairs], rows)
+    late_pos, tracked = pad_rows(late_pos, rows), pad_rows(tracked, rows)
     vel, homo, ok = [], [], []
-    for s in range(0, num_pairs, PAIR_BATCH):
-        sl = slice(s, min(s + PAIR_BATCH, num_pairs))
-        match = match_from_tracks(
-            keypoints.positions[sl], late_pos[sl], tracked[sl], keys[sl], config
+    for s in range(0, rows, PAIR_BATCH):
+        sl = slice(s, s + PAIR_BATCH)
+        v, h, o = graphs.run(
+            runner, motion_batch, (early[sl], late_pos[sl], tracked[sl], keys[sl], vgrid),
+            config, frame_height, frame_width,
         )
-        vel.append(
-            vertex_velocities(
-                match.early, match.late, match.inlier, match.homography, vgrid,
-                config, frame_height, frame_width,
-            )
-        )
-        homo.append(match.homography)
-        ok.append(match.ok)
-    return torch.cat(vel), torch.cat(homo), torch.cat(ok)
+        vel.append(v)
+        homo.append(h)
+        ok.append(o)
+    return tuple(torch.cat(parts)[:num_pairs] for parts in (vel, homo, ok))
 
 
 def integrate_velocities(velocities, homographies, pair_ok) -> MotionEstimate:
@@ -199,9 +252,11 @@ def estimate_motion_chunked(
     frame_height: int,
     frame_width: int,
     chunk_pairs: int = 128,
+    runner: graphs.GraphRunner | None = None,
 ) -> MotionEstimate:
     """Motion of a whole clip in blocks of `chunk_pairs` pairs (the last
-    block ragged), so the working set stays that of one block."""
+    block ragged), so the working set stays that of one block; the match
+    batches run through `runner` (``pair_velocities``)."""
     num_frames = frames_bgr.shape[0]
     parts = []
     for start in range(0, num_frames - 1, chunk_pairs):
@@ -210,7 +265,7 @@ def estimate_motion_chunked(
         parts.append(
             pair_velocities(
                 kps, frames_bgr[start:stop], key, start, config,
-                frame_height, frame_width,
+                frame_height, frame_width, runner,
             )
         )
     velocities, homographies, pair_ok = (torch.cat(p) for p in zip(*parts))

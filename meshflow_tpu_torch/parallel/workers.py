@@ -1,9 +1,10 @@
 """One host process a device entry: the worker processes behind
 ``batch.stabilize_batch`` and ``pipeline.stabilize_sharded``.
 
-The port runs eagerly: a 640x360 pass makes ~330,000 CUDA launches, each
-a few Python calls under the interpreter's lock, so threads of one
-interpreter share one launch rate.  The JAX package dispatches each block
+Outside its graphed match batches the port runs eagerly: a 640x360 pass
+still makes tens of thousands of CUDA launches, each a few Python calls
+under the interpreter's lock, so threads of one interpreter share one
+launch rate.  The JAX package dispatches each block
 as one compiled program with the lock released; the port's counterpart
 is an interpreter a device.  ``pool(devices)`` starts one spawned child
 for each entry of `devices` (an entry may repeat: two children on
@@ -14,18 +15,21 @@ with the parent's count each would oversubscribe the host's cores).
 One pool lives at a time.  It is kept for later calls with the same list,
 and closed by a call with another list, by ``shutdown()`` or at the
 interpreter's exit.  An idle child costs its CUDA context on its card and
-nothing else of the device: it empties its caching allocator after every
-task.  The pool also keeps the shared host buffers of the sharded path
-between calls of one shape (``WorkerPool.shared``), and a child keeps its
-last task's arguments until the next task has arrived, so a buffer sent
-again maps to the pages the child already has.
+nothing else of the device: a task's CUDA graphs and their pool belong to
+the task's runner (a batch job's stabilizer, a sharded rank's step),
+which frees them when it ends, and the child empties its caching
+allocator after every task.  The pool also keeps the shared host buffers
+of the sharded path between calls of one shape (``WorkerPool.shared``),
+and a child keeps its last task's arguments until the next task has
+arrived, so a buffer sent again maps to the pages the child already has.
 
 A task is a picklable function and its arguments, sent over the child's
 pipe with the parent's ``MESHFLOW_*`` environment of the call (a child
 does not see what the parent changes after it started).  The child
 answers with the result and its usage: the launches of the kernel
 wrappers during the task, which the parent adds into its own wrappers'
-``.launches``; the task's CPU seconds; and the device's peak memory.  A
+``.launches``; the CUDA graphs it captured and replayed; the task's CPU
+seconds; and the device's peak memory.  A
 child's exception is raised again in the parent as ``WorkerError`` with
 the child's traceback, and a child that exits raises one with its exit
 code; either closes the pool, so that no rank is left waiting in a
@@ -53,6 +57,8 @@ from multiprocessing import connection
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from meshflow_tpu_torch.utils import graphs
 
 _POOL = None  # the live pool, if any
 _DEVICE = None  # a child's device; None in a process that is no worker
@@ -111,10 +117,10 @@ atexit.register(shutdown)
 
 def _wrappers() -> dict:
     """The kernel wrappers of the parallel paths, by name."""
-    from meshflow_tpu_torch.kernels import bmap_cuda, lk_band_cuda, lk_cuda
+    from meshflow_tpu_torch.kernels import bmap_cuda, eig9_cuda, lk_band_cuda, lk_cuda
 
     return {"lk_level": lk_cuda.lk_level, "lk_band": lk_band_cuda.lk_level_band,
-            "backward_map": bmap_cuda.backward_map}
+            "backward_map": bmap_cuda.backward_map, "eig9": eig9_cuda.null_vector}
 
 
 def _run_task(fn, args, env):
@@ -125,6 +131,7 @@ def _run_task(fn, args, env):
     os.environ.update(env)
     wrappers = _wrappers()
     before = {name: w.launches for name, w in wrappers.items()}
+    graphs_before = graphs.totals["captures"], graphs.totals["replays"]
     on_card = _DEVICE.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(_DEVICE)
@@ -135,6 +142,8 @@ def _run_task(fn, args, env):
         ok, result = False, traceback.format_exc()
     usage = {
         "launches": {n: w.launches - before[n] for n, w in wrappers.items()},
+        "graphs": (graphs.totals["captures"] - graphs_before[0],
+                   graphs.totals["replays"] - graphs_before[1]),
         "cpu_seconds": time.process_time() - cpu,
         "peak_bytes": torch.cuda.max_memory_allocated(_DEVICE) if on_card else None,
     }
@@ -267,8 +276,8 @@ class WorkerPool:
 
     def _begin(self) -> None:
         self._env = {k: v for k, v in os.environ.items() if k.startswith("MESHFLOW_")}
-        self.last_usage = [{"tasks": 0, "launches": {}, "cpu_seconds": 0.0, "peak_bytes": None}
-                           for _ in self.procs]
+        self.last_usage = [{"tasks": 0, "launches": {}, "cpu_seconds": 0.0, "peak_bytes": None,
+                            "graphs": (0, 0)} for _ in self.procs]
 
     def _send(self, child: int, task_id: int, fn, args) -> None:
         try:
@@ -300,6 +309,7 @@ class WorkerPool:
         total = self.last_usage[child]
         total["tasks"] += 1
         total["cpu_seconds"] += usage["cpu_seconds"]
+        total["graphs"] = tuple(a + b for a, b in zip(total["graphs"], usage["graphs"]))
         for name, n in usage["launches"].items():
             wrappers[name].launches += n
             total["launches"][name] = total["launches"].get(name, 0) + n

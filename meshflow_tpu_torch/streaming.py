@@ -79,7 +79,7 @@ from meshflow_tpu_torch.render.stabilize import (
 )
 from meshflow_tpu_torch.solver.jacobi import jacobi_smooth
 from meshflow_tpu_torch.solver.weights import adaptive_weights
-from meshflow_tpu_torch.utils import grid, prng
+from meshflow_tpu_torch.utils import graphs, grid, prng
 
 STAGES = (
     "decode", "host->device", "detect+motion", "motion (sync)", "solver", "crop scan",
@@ -314,12 +314,16 @@ def stabilize_streamed(
     device,
     chunk: int = 64,
     checkpoint_dir: Optional[str] = None,
+    runner: Optional[graphs.GraphRunner] = None,
 ):
     """Stream `clip` (a path or an ``ArrayClip``) to `output` (a path or a
     writer); returns (cropping_ratio, distortion_score, stability_score).
 
     checkpoint_dir persists pass 1's motion state: a rerun of the same
     clip and config, also under another variant, resumes at the solve.
+    runner: the motion and metric batches run through it
+    (``MeshFlowStabilizer.stabilize`` passes its own; None runs them
+    directly).
     """
     device = torch.device(device)
     if isinstance(clip, (str, os.PathLike)):
@@ -351,7 +355,7 @@ def stabilize_streamed(
             [], None,
         )
     else:
-        state = _pass1(clip, info, config, key, device, chunk, acc)
+        state = _pass1(clip, info, config, key, device, chunk, acc, runner)
         if ckpt_path:
             motion, kps = state.motion, state.keypoints
             ckpt_mod.save_motion(ckpt_path, ckpt_mod.MotionCheckpoint(
@@ -360,12 +364,12 @@ def stabilize_streamed(
                                             kps.valid))
             ))
     result = _solve_and_render(clip, output, info, adaptive_weights_definition, config, key,
-                               device, chunk, acc, state)
+                               device, chunk, acc, state, runner)
     acc.flush()
     return result
 
 
-def _pass1(clip, info, config, key, device, chunk, acc) -> _Pass1:
+def _pass1(clip, info, config, key, device, chunk, acc, runner=None) -> _Pass1:
     """Decode, detect and track the clip window by window."""
     h, w = info.height, info.width
     d_track = config.resolve_track_downscale(h, w)
@@ -405,7 +409,7 @@ def _pass1(clip, info, config, key, device, chunk, acc) -> _Pass1:
             kps = Keypoints(*(torch.cat(p) for p in zip(halo[1], kps)))
         if track.shape[0] >= 2:
             vel, homo, ok = pair_velocities(kps, track, key_motion, read - 1 if halo else 0,
-                                            config, th, tw)
+                                            config, th, tw, runner)
             vel_parts.append(vel)
             homo_parts.append(homo)
             ok_parts.append(ok)
@@ -591,7 +595,7 @@ class _Pipeline:
 
 
 def _solve_and_render(clip, output, info, adaptive_weights_definition, config, key, device,
-                      chunk, acc, state: _Pass1):
+                      chunk, acc, state: _Pass1, runner=None):
     """Solve, crop scan and pass 2 (shared by fresh and resumed runs)."""
     h, w = info.height, info.width
     num_frames = state.motion.displacements.shape[0]  # the frames pass 1 read
@@ -650,7 +654,7 @@ def _solve_and_render(clip, output, info, adaptive_weights_definition, config, k
                     cropped_t = trackscale.to_track_planes_dev(cropped, config)
                 r, d = cropping_and_distortion(
                     Keypoints(*(a[sl] for a in keypoints)), unstab_t, cropped_t,
-                    metric_key, start, config, th, tw,
+                    metric_key, start, config, th, tw, runner,
                 )
                 ratios.append(r)
                 distortions.append(d)

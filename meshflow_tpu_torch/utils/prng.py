@@ -83,6 +83,15 @@ def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
     return a ^ b
 
 
+def _as_bound(value, key: torch.Tensor) -> torch.Tensor:
+    """A randint bound as an int64 tensor on the key's device.  A Python
+    int becomes a fill, not a copy from the host: a CUDA graph captures
+    no copy of host memory."""
+    if isinstance(value, int):
+        return torch.full((), value, dtype=torch.int64, device=key.device)
+    return torch.as_tensor(value, dtype=torch.int64, device=key.device)
+
+
 def randint(key: torch.Tensor, n: int, minval, maxval) -> torch.Tensor:
     """jax.random.randint(key, (n,), minval, maxval) with int32 output.
 
@@ -92,8 +101,8 @@ def randint(key: torch.Tensor, n: int, minval, maxval) -> torch.Tensor:
     keys = split(key, 2)
     higher = random_bits(keys[..., 0, :], n)
     lower = random_bits(keys[..., 1, :], n)
-    lo = torch.as_tensor(minval, dtype=torch.int64, device=key.device)
-    hi = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
+    lo = _as_bound(minval, key)
+    hi = _as_bound(maxval, key)
     span = torch.where(hi <= lo, torch.ones_like(hi - lo), hi - lo)
     lo, span = lo[..., None], span[..., None]
     multiplier = (65536 % span) & _MASK

@@ -125,3 +125,31 @@ def test_checkpoint_of_another_length_is_ignored(fresh, tmp_path, monkeypatch):
     with open(target, "wb") as f:
         f.write(b"not an npz")
     assert ckpt.load_motion(target) is None
+
+
+def test_checkpoint_of_an_earlier_revision_misses(fresh, tmp_path, monkeypatch):
+    """A checkpoint written under tracker revision 1 (before the card's DLT
+    took its null vector from the eig9 kernel) is not found under revision
+    2, on either tracker: pass 1 runs again and writes an r2 checkpoint."""
+    path, ckpt_dir, (frames, metrics) = fresh
+    assert ckpt.LK_KERNEL_REVISION == 2
+    stab = _stabilizer(checkpoint_dir=str(tmp_path))
+    seed = int(stab._key[-1])
+    with monkeypatch.context() as m:
+        m.setattr(ckpt, "LK_KERNEL_REVISION", 1)
+        old = {d: ckpt.cache_path(str(tmp_path), path, stab.config, seed, d)
+               for d in ("cuda", "cpu")}
+        assert "torch-plain-r1" in ckpt._motion_config_key(stab.config, "cpu")
+    new = {d: ckpt.cache_path(str(tmp_path), path, stab.config, seed, d)
+           for d in ("cuda", "cpu")}
+    assert not set(old.values()) & set(new.values())
+    good = ckpt.load_motion(os.path.join(ckpt_dir, os.listdir(ckpt_dir)[0]))
+    ckpt.save_motion(old["cpu"], good)
+    runs = []
+    pass1 = streaming._pass1
+    monkeypatch.setattr(streaming, "_pass1", lambda *a: runs.append(1) or pass1(*a))
+    got = _streamed(stab, path)
+    assert runs == [1]
+    np.testing.assert_array_equal(got[0], frames)
+    assert got[1] == metrics
+    assert ckpt.load_motion(new["cpu"]) is not None

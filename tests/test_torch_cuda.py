@@ -143,7 +143,7 @@ def test_build_key_follows_sources():
     assert path == _build.library_path()
     assert path.parent.parent == _build.BUILD_ROOT
     assert sorted(p.name for p in _build.SRC_DIR.glob("*.cu")) == [
-        "bmap.cu", "lk_band.cu", "lk_level.cu", "probe_aligned_dynslice.cu",
+        "bmap.cu", "eig9.cu", "lk_band.cu", "lk_level.cu", "probe_aligned_dynslice.cu",
         "probe_dynslice_fetch.cu", "probe_scalar_from_vmem.cu", "probe_select_rows.cu",
     ]
     assert sorted(p.name for p in _build.SRC_DIR.glob("*.cuh")) == ["lk_common.cuh", "probes.cuh"]
@@ -608,3 +608,144 @@ def test_streamed_matches_in_memory_on_card():
             del os.environ["MESHFLOW_HBM_FRAME_BUDGET_GB"]
         assert torch.equal(torch.from_numpy(writer.frames()), cropped.cpu()), budget
         assert got == tuple(float(m) for m in metrics), budget
+
+
+def _graph_clip(num_frames, h=360, w=640):
+    """Seeded jittery pan over blurred noise, (F, H, W, 3) uint8."""
+    rng = np.random.default_rng(11)
+    canvas = rng.integers(0, 256, ((h + 80) // 4, (w + 160) // 4, 3)).astype(np.float32)
+    canvas = canvas.repeat(4, 0).repeat(4, 1)
+    for ax in (0, 1):
+        canvas = 0.25 * np.roll(canvas, 1, ax) + 0.5 * canvas + 0.25 * np.roll(canvas, -1, ax)
+    canvas = np.round(canvas).astype(np.uint8)
+    frames = []
+    for t in range(num_frames):
+        jx, jy = rng.integers(-3, 4, 2)
+        x0 = 40 + (t * 80) // max(num_frames - 1, 1) + jx
+        frames.append(canvas[40 + jy : 40 + jy + h, x0 : x0 + w])
+    return np.stack(frames)
+
+
+@pytest.mark.cuda
+def test_eig9_kernel_matches_eigh_and_its_emulation_on_card():
+    """eig9 against eigh on DLT normal matrices and degenerate ones: the
+    gate of tests/test_torch_eig9_exact.py, and bit for bit the PyTorch
+    emulation of its sweeps on the card (--fmad=false, IEEE division and
+    square root)."""
+    from meshflow_tpu_torch.kernels import eig9_cuda, homography
+
+    dev = _card()
+    rng = np.random.default_rng(5)
+    early = torch.from_numpy(rng.uniform(0, 640, (512, 256, 2)).astype(np.float32)).to(dev)
+    late = early * 1.02 + torch.from_numpy(rng.normal(0, 1, (512, 256, 2)).astype(np.float32)).to(dev)
+    weights = torch.from_numpy((rng.random((512, 256)) < 0.7).astype(np.float32)).to(dev)
+    normal, early_t, late_t = homography.dlt_normal(early, late, weights)
+    x = torch.from_numpy(rng.normal(size=(8, 8, 9))).to(dev)
+    normal = torch.cat([normal, x.transpose(-1, -2) @ x, torch.zeros(2, 9, 9, device=dev,
+                                                                      dtype=torch.float64)])
+    before = eig9_cuda.null_vector.launches
+    vec = eig9_cuda.null_vector(normal)
+    assert eig9_cuda.null_vector.launches == before + 1
+    assert torch.equal(vec, eig9_cuda.null_vector_jacobi(normal))
+    w, vecs = torch.linalg.eigh(normal)
+    fro = torch.linalg.matrix_norm(normal)
+    rq = torch.einsum("bi,bij,bj->b", vec, normal, vec)
+    assert torch.isfinite(vec).all() and (rq <= w[:, 0] + 1e-12 * fro).all()
+    gapped = ((w[:, 1] - w[:, 0]) > 1e-9 * fro)[:512]
+    h = homography.dlt_from_null_vector(vec[:512], early_t, late_t)
+    h_eigh = homography.dlt_from_null_vector(vecs[:512, :, 0], early_t, late_t)
+    rel = (h - h_eigh).abs().flatten(-2).amax(-1) / h_eigh.abs().flatten(-2).amax(-1)
+    assert rel[gapped].max() <= 1e-5
+
+
+def _unit_inputs(dev, num_frames=17):
+    from meshflow_tpu_torch.motion import pipeline as mp
+    from meshflow_tpu_torch.utils import prng
+
+    config = MeshFlowConfig()
+    frames = torch.from_numpy(_graph_clip(num_frames)).to(dev)
+    kps, _ = mp.prepare_frames(frames, config)
+    late, tracked = mp.track_pairs(kps, frames, config, 360, 640)
+    keys = prng.fold_in(prng.PRNGKey(0, dev), torch.arange(16, device=dev))
+    return config, kps.positions[:16], late, tracked, keys
+
+
+@pytest.mark.cuda
+def test_graphed_units_equal_eager_on_card():
+    """The motion and metric batches and the online step, each captured and
+    replayed with other inputs, torch.equal to the same call run eagerly;
+    launches counted as eagerly."""
+    from meshflow_tpu_torch.kernels import eig9_cuda
+    from meshflow_tpu_torch.metrics import quality
+    from meshflow_tpu_torch.motion import pipeline as mp
+    from meshflow_tpu_torch.online import OnlineMeshFlowStabilizer
+    from meshflow_tpu_torch.utils import graphs
+
+    dev = _card()
+    config, early, late, tracked, keys = _unit_inputs(dev)
+    vgrid = grid.vertex_grid(config, 360, 640, device=dev)
+    runner = graphs.GraphRunner()
+    inputs = [(early, late, tracked, keys), (early.flip(0), late.flip(0), tracked.flip(0), keys)]
+    for fn, static, extra in ((mp.motion_batch, (config, 360, 640), (vgrid,)),
+                              (quality.metric_batch, (config,), ())):
+        for args in inputs + inputs:  # warm-up, capture and replay, replays
+            before = eig9_cuda.null_vector.launches
+            got = runner.run(fn, args + extra, *static)
+            mid = eig9_cuda.null_vector.launches
+            want = fn(*args, *extra, *static)
+            assert eig9_cuda.null_vector.launches - mid == mid - before == 4
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), fn.__name__
+    assert runner.captures == 2 and runner.replays == 6
+    frames = _graph_clip(12)
+    outs = []
+    for graphed in (False, True):
+        stab = OnlineMeshFlowStabilizer(device=dev, _graphs=graphed)
+        outs.append([stab.process(f) for f in frames])
+        stab.close()
+    assert all(np.array_equal(a, b) for a, b in zip(*outs))
+    runner.clear()
+
+
+@pytest.mark.cuda
+def test_runner_clear_returns_the_pool_on_card():
+    from meshflow_tpu_torch.motion import pipeline as mp
+    from meshflow_tpu_torch.utils import graphs
+
+    dev = _card()
+    config, early, late, tracked, keys = _unit_inputs(dev)
+    vgrid = grid.vertex_grid(config, 360, 640, device=dev)
+    runner = graphs.GraphRunner()
+    for _ in range(2):  # warm-up, then capture
+        runner.run(mp.motion_batch, (early, late, tracked, keys, vgrid), config, 360, 640)
+    assert runner.captures == 1
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = runner.pool_bytes()
+    free = torch.cuda.mem_get_info(dev)[0]
+    runner.clear()
+    freed = torch.cuda.mem_get_info(dev)[0] - free
+    assert held is None or held > 2**29  # a 16-pair batch's working set
+    assert freed >= (held or 2**29) * 0.9, (freed, held)
+    assert runner.pool_bytes() == 0
+
+
+@pytest.mark.cuda
+def test_a_unit_that_synchronizes_raises_at_capture_on_card():
+    """eigh synchronizes the host with the card: it runs eagerly as a key's
+    first call (the warm-up), its capture at the second call raises, and
+    the runner does not run it eagerly instead."""
+    from meshflow_tpu_torch.utils import graphs
+
+    dev = _card()
+
+    def unit(normal):
+        return (torch.linalg.eigh(normal)[1],)
+
+    runner = graphs.GraphRunner()
+    normal = torch.eye(9, dtype=torch.float64, device=dev).expand(4, 9, 9).contiguous()
+    runner.run(unit, (normal,))
+    with pytest.raises(Exception, match="captur"):
+        runner.run(unit, (normal,))
+    assert runner.captures == 0
+    torch.cuda.synchronize()
+    runner.clear()
