@@ -1,0 +1,9 @@
+"""The port's "motion" stage, ms a frame: its StageTimer seconds over the
+stage-timed clip (the card synchronized at the end of every stage)."""
+
+
+def read(ctx):
+    stages = ctx.get("stages") or {}
+    if "motion" not in stages:
+        return None
+    return stages["motion"] / ctx["frames"] * 1e3
