@@ -28,7 +28,9 @@ route:
    gray planes warped through step 4's maps and crop), stability
    (metrics)
 
-Stages are timed by ``utils.profiling.StageTimer`` (``last_timer``).
+Stages are timed by ``utils.profiling.StageTimer`` (``last_timer``), and
+each call is a request of the span recorder (``utils/profiling.py``):
+``stabilize`` its root, ``clip`` the in-memory stages' parent.
 ``visualize=True`` takes the in-memory route and shows each input frame
 above its output (``_display_loop``) once the output is written.  The
 JAX package's host renderer is left behind: the port renders on the
@@ -56,7 +58,7 @@ from meshflow_tpu_torch.motion.pipeline import estimate_motion_chunked, prepare_
 from meshflow_tpu_torch.render.stabilize import crop_frames, intersect_crops, render_block
 from meshflow_tpu_torch.solver.jacobi import jacobi_smooth
 from meshflow_tpu_torch.solver.weights import adaptive_weights
-from meshflow_tpu_torch.utils import graphs, grid, prng
+from meshflow_tpu_torch.utils import graphs, grid, prng, profiling
 from meshflow_tpu_torch.utils.profiling import StageTimer
 
 
@@ -182,14 +184,28 @@ class MeshFlowStabilizer:
                 "(the streaming pipeline does not retain frames); "
                 "unset one of them."
             )
-        if mode in ("auto", "1") and not self.config.visualize:
-            result = streaming.stabilize_streamed(
-                input_path, output_path, adaptive_weights_definition, self.config,
-                self._key, timer, self.device, chunk=self.CHUNK,
-                checkpoint_dir=self.checkpoint_dir, runner=self._runner,
-            )
-            timer.report()
-            return result
+        shown = None
+        with profiling.recording(timer.enabled), profiling.span(
+            "stabilize", device=self.device
+        ):
+            if mode in ("auto", "1") and not self.config.visualize:
+                result = streaming.stabilize_streamed(
+                    input_path, output_path, adaptive_weights_definition, self.config,
+                    self._key, timer, self.device, chunk=self.CHUNK,
+                    checkpoint_dir=self.checkpoint_dir, runner=self._runner,
+                )
+            else:
+                result, shown = self._stabilize_in_memory(
+                    input_path, output_path, adaptive_weights_definition, timer)
+        timer.report()
+        if shown is not None:
+            self._display_loop(*shown)
+        return result
+
+    def _stabilize_in_memory(self, input_path, output_path, adaptive_weights_definition,
+                             timer):
+        """The in-memory route of ``stabilize``: (scores, (input frames,
+        output frames, fps) when visualize is on, else None)."""
         with timer.stage("decode"):
             frames_np, info = video_io.read_video(input_path)
         with timer.stage("host->device"):
@@ -201,10 +217,8 @@ class MeshFlowStabilizer:
             cropped_np = cropped.cpu().numpy()
         with timer.stage("encode"):
             video_io.write_video(output_path, cropped_np, info.fps, info.fourcc)
-        timer.report()
-        if self.config.visualize:
-            self._display_loop(frames_np, cropped_np, info.fps)
-        return float(cropping_ratio), float(distortion), float(stability)
+        scores = float(cropping_ratio), float(distortion), float(stability)
+        return scores, (frames_np, cropped_np, info.fps) if self.config.visualize else None
 
     # ------------------------------------------------------------------
     def _stabilize_frames(
@@ -213,11 +227,19 @@ class MeshFlowStabilizer:
         """(F, H, W, 3) uint8 -> (cropped (F, H, W, 3) uint8, cropping_ratio,
         distortion_score, stability_score), all tensors on self.device.
         timer: a StageTimer (default: one that MESHFLOW_TIMINGS enables),
-        kept as ``last_timer``."""
+        kept as ``last_timer``.  The call is the span ``clip``, the root of
+        its request unless a ``stabilize`` call holds it."""
         validate_adaptive_weights_definition(adaptive_weights_definition)
-        config = self.config
         timer = timer or StageTimer(device=self.device)
         self.last_timer = timer
+        with profiling.recording(timer.enabled), profiling.span(
+            "clip", device=self.device
+        ):
+            return self._stages(frames, adaptive_weights_definition, timer)
+
+    def _stages(self, frames, adaptive_weights_definition: int, timer):
+        """The body of ``_stabilize_frames``."""
+        config = self.config
         frames = torch.as_tensor(frames).to(self.device)
         if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[-1] != 3:
             raise ValueError("frames must be (F, H, W, 3) uint8 BGR")

@@ -59,6 +59,7 @@ from meshflow_tpu_torch.render.stabilize import crop_resize_frame, warp_frame
 from meshflow_tpu_torch.solver.jacobi import gaussian_band
 from meshflow_tpu_torch.solver.weights import adaptive_weights
 from meshflow_tpu_torch.utils import graphs, grid, prng
+from meshflow_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -293,18 +294,26 @@ class OnlineMeshFlowStabilizer:
         self._runner.clear()
 
     def process(self, frame: np.ndarray) -> np.ndarray:
-        """frame: (H, W, 3) uint8 BGR -> stabilized (H, W, 3) uint8 BGR."""
-        h, w = frame.shape[:2]
-        device_frame = torch.as_tensor(np.ascontiguousarray(frame)).to(self.device)
-        if self._state is None:
-            self._state = initial_state(device_frame, self.config)
-            self._shape = (h, w)
-            self._consts = online_constants(self.config, h, w, self.crop_ratio, self.device)
-            return frame
-        if self._shape != (h, w):
-            raise ValueError("frame size changed mid-stream")
-        self._state, out = online_step(
-            self._state, device_frame, self._key, self.config, h, w,
-            self.adaptive_weights_definition, self.crop_ratio, self._consts, self._runner,
-        )
-        return out.cpu().numpy()
+        """frame: (H, W, 3) uint8 BGR -> stabilized (H, W, 3) uint8 BGR.
+        The call is a request of the span recorder: ``online.frame``, with
+        ``online.upload``, ``online.step`` (the runner's spans inside) and
+        ``online.download``."""
+        with span("online.frame", device=self.device):
+            h, w = frame.shape[:2]
+            with span("online.upload"):
+                device_frame = torch.as_tensor(np.ascontiguousarray(frame)).to(self.device)
+            if self._state is None:
+                self._state = initial_state(device_frame, self.config)
+                self._shape = (h, w)
+                self._consts = online_constants(self.config, h, w, self.crop_ratio, self.device)
+                return frame
+            if self._shape != (h, w):
+                raise ValueError("frame size changed mid-stream")
+            with span("online.step"):
+                self._state, out = online_step(
+                    self._state, device_frame, self._key, self.config, h, w,
+                    self.adaptive_weights_definition, self.crop_ratio, self._consts,
+                    self._runner,
+                )
+            with span("online.download"):
+                return out.cpu().numpy()

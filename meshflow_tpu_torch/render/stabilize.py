@@ -28,6 +28,7 @@ import torch
 from meshflow_tpu_torch.config import MeshFlowConfig
 from meshflow_tpu_torch.kernels.color import gray_of_bgr_color
 from meshflow_tpu_torch.kernels.homography import quad_to_quad_homography
+from meshflow_tpu_torch.utils.profiling import span
 
 
 class BackwardMap(NamedTuple):
@@ -369,12 +370,17 @@ def render_block(
     """`render_stabilized` of a block, with its track planes `track` (F, H,
     W, 1) warped through the same backward maps when given (the metric
     pass's gray re-render).  Returns (stabilized frames, stabilized track
-    planes or None, crop (4,))."""
-    bmap = stabilized_maps(unstab_disp, stab_disp, unstab_grid, config, frame_height,
-                           frame_width)
-    stabilized_track = None if track is None else warp_block(track, bmap, config)
-    return (warp_block(frames, bmap, config), stabilized_track,
-            block_crop(bmap, frame_height, frame_width))
+    planes or None, crop (4,)).  Spans: ``render.maps``, ``render.warp``
+    and ``render.edges``."""
+    with span("render.maps"):
+        bmap = stabilized_maps(unstab_disp, stab_disp, unstab_grid, config, frame_height,
+                               frame_width)
+    with span("render.warp"):
+        stabilized_track = None if track is None else warp_block(track, bmap, config)
+        stabilized = warp_block(frames, bmap, config)
+    with span("render.edges"):
+        crop = block_crop(bmap, frame_height, frame_width)
+    return stabilized, stabilized_track, crop
 
 
 def stabilized_maps(
@@ -413,7 +419,9 @@ def intersect_crops(crops) -> torch.Tensor:
 def crop_frames(
     stabilized: torch.Tensor, crop: torch.Tensor, frame_height: int, frame_width: int
 ) -> torch.Tensor:
-    """Crop+stretch every frame back to full resolution."""
-    return torch.stack(
-        [crop_resize_frame(f, crop, frame_height, frame_width) for f in stabilized]
-    )
+    """Crop+stretch every frame back to full resolution (span
+    ``render.crop``)."""
+    with span("render.crop"):
+        return torch.stack(
+            [crop_resize_frame(f, crop, frame_height, frame_width) for f in stabilized]
+        )

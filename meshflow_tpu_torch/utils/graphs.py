@@ -25,7 +25,10 @@ runs a unit as one CUDA graph:
   the captured units' working set (2.06 GiB for the 16-pair batches on
   the 16x16 mesh, measured on an H100 80GB HBM3 at 700 W) until the
   runner's ``clear()``;
-* a capture that fails raises: there is no eager fallback.
+* a capture that fails raises: there is no eager fallback;
+* a warm-up, a capture and a replay are each a span of the recorder
+  (``utils/profiling.py``) around the runner's work, never inside the
+  captured unit.
 
 On the CPU, and for a runner made with ``enabled=False`` (the private way
 to run the card eagerly for a comparison), ``run`` calls ``fn``
@@ -47,9 +50,10 @@ import torch
 from torch.utils import _pytree as pytree
 
 from meshflow_tpu_torch.kernels import _launch
+from meshflow_tpu_torch.utils import profiling
 
-# Captures, replays and capture seconds of every runner of the process
-# (the worker processes report their tasks' share).
+# Captures and replays of every runner of the process (the worker
+# processes report their tasks' share).
 totals: collections.Counter = collections.Counter()
 
 
@@ -88,26 +92,36 @@ class GraphRunner:
     def run(self, fn, tensors, *static):
         """fn(*tensors, *static); `tensors` a tuple of tensors (nested
         tuples and NamedTuples allowed), `static` hashable.  Returns fn's
-        tensors, as fn would."""
+        tensors, as fn would.  A warm-up, a capture and a replay are spans
+        (``graph.warmup:<unit>``, ``graph.capture:<unit>``,
+        ``graph.replay:<unit>``, the unit fn's name); the replay's span
+        holds the input copies, the launch and the output clones."""
         flat, spec = pytree.tree_flatten(tensors)
         device = flat[0].device
         if not self.graphs_on(device):
             return fn(*tensors, *static)
+        unit = fn.__name__
         key = (fn, device, static, tuple((tuple(t.shape), t.dtype) for t in flat))
         entry = self._graphs.get(key)
-        if entry is None:
-            if key not in self._seen:
-                self._seen.add(key)
+        if entry is None and key not in self._seen:
+            self._seen.add(key)
+            with profiling.span("graph.warmup", unit, device):
                 return self._warm_up(fn, tensors, static, device)
-            entry = self._capture(key, fn, flat, spec, static, device)
-        else:
-            for dst, src in zip(entry.inputs, flat):
-                dst.copy_(src)
-        self._replay(entry.graph, device)
-        _launch.add(entry.launched)
-        self.replays += 1
-        totals["replays"] += 1
-        return pytree.tree_unflatten([t.clone() for t in entry.outputs], entry.out_spec)
+        captured_now = entry is None  # the capture's static inputs hold this call's
+        if captured_now:
+            with profiling.span("graph.capture", unit, device):
+                entry = self._capture(key, fn, flat, spec, static, device)
+                self.captures += 1
+                totals["captures"] += 1
+        with profiling.span("graph.replay", unit, device):
+            if not captured_now:
+                for dst, src in zip(entry.inputs, flat):
+                    dst.copy_(src)
+            self._replay(entry.graph, device)
+            _launch.add(entry.launched)
+            self.replays += 1
+            totals["replays"] += 1
+            return pytree.tree_unflatten([t.clone() for t in entry.outputs], entry.out_spec)
 
     def _stream(self, device: torch.device):
         if device not in self._streams:
@@ -141,11 +155,7 @@ class GraphRunner:
             graph, outputs = self._record(fn, args, static, device)
         out_flat, out_spec = pytree.tree_flatten(outputs)
         entry = self._graphs[key] = _Graph(graph, inputs, out_flat, out_spec, launched)
-        seconds = time.perf_counter() - start
-        self.captures += 1
-        self.capture_seconds += seconds
-        totals["captures"] += 1
-        totals["capture_seconds"] += seconds
+        self.capture_seconds += time.perf_counter() - start
         return entry
 
     def _record(self, fn, args, static, device):

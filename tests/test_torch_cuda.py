@@ -749,3 +749,121 @@ def test_a_unit_that_synchronizes_raises_at_capture_on_card():
     assert runner.captures == 0
     torch.cuda.synchronize()
     runner.clear()
+
+
+@pytest.fixture
+def recorder():
+    """The span recorder's record emptied around the test, and the sync
+    debug mode checked to be put back."""
+    from meshflow_tpu_torch.utils import profiling
+
+    dev = _card()
+    mode = torch.cuda.get_sync_debug_mode()
+    profiling.clear()
+    yield dev, profiling
+    profiling.clear()
+    assert torch.cuda.get_sync_debug_mode() == mode
+
+
+@pytest.mark.cuda
+def test_a_span_counts_the_sync_of_one_item_on_card(recorder):
+    dev, profiling = recorder
+    x = torch.arange(16.0, device=dev)
+    torch.cuda.synchronize()
+    with profiling.recording():
+        with profiling.span("item", device=dev):
+            x.sum().item()
+        with profiling.span("queued", device=dev):
+            (x * 2).sum()
+    item, queued = profiling.requests()
+    assert (item.syncs, queued.syncs) == (1, 0)
+    assert item.root.device_ms is not None and queued.root.device_ms is not None
+
+
+@pytest.mark.cuda
+def test_a_graph_replay_counts_no_sync_on_card(recorder):
+    from meshflow_tpu_torch.utils import graphs
+
+    dev, profiling = recorder
+
+    def unit(x):
+        return (torch.cumsum(x * 2.0 + 1.0, 0),)
+
+    runner = graphs.GraphRunner()
+    x = torch.arange(1024.0, device=dev)
+    with profiling.recording():
+        with profiling.span("setup", device=dev):
+            for _ in range(2):  # warm-up, capture (and its first replay)
+                runner.run(unit, (x,))
+        with profiling.span("outer", device=dev):
+            out = runner.run(unit, (x + 1.0,))
+    setup, req = profiling.requests()
+    assert [s.name for s in setup.spans[1:]] == ["graph.warmup:unit", "graph.capture:unit",
+                                                 "graph.replay:unit"]
+    (replay,) = req.named("graph.replay:unit")
+    assert req.syncs == 0 and replay.syncs == 0
+    assert 0 <= replay.device_start_ms and 0 < replay.device_ms <= req.root.device_ms
+    assert torch.equal(out[0], unit(x + 1.0)[0])
+    runner.clear()
+
+
+@pytest.mark.cuda
+def test_a_warm_online_frame_counts_two_syncs_on_card(recorder):
+    """Upload and copy back: the step's graph replay syncs nothing."""
+    from meshflow_tpu_torch.online import OnlineMeshFlowStabilizer
+
+    dev, profiling = recorder
+    frames = _graph_clip(7)
+    stab = OnlineMeshFlowStabilizer(device=dev)
+    for frame in frames[:4]:  # the first frame, the warm-up, the capture
+        stab.process(frame)
+    with profiling.recording():
+        for frame in frames[4:]:
+            stab.process(frame)
+    record = profiling.requests()
+    assert len(record) == 3
+    for req in record:
+        assert req.syncs == 2
+        assert [req.named(n)[0].syncs for n in ("online.upload", "online.step",
+                                                "online.download")] == [1, 0, 1]
+        (replay,) = req.named("graph.replay:_step")
+        assert replay.syncs == 0 and replay.device_ms > 0
+    stab.close()
+
+
+@pytest.mark.cuda
+def test_a_span_device_interval_agrees_with_events_alone_on_card(recorder):
+    dev, profiling = recorder
+    cycles = 20_000_000  # about 10 ms at the H100's clock
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    alone, spanned = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        alone.append(start.elapsed_time(end))
+        with profiling.recording(), profiling.span("sleep", device=dev):
+            torch.cuda._sleep(cycles)
+        spanned.append(profiling.requests()[-1].root.device_ms)
+    assert min(alone) > 1.0
+    assert abs(np.median(spanned) - np.median(alone)) <= 0.02 * np.median(alone), (
+        spanned, alone)
+
+
+@pytest.mark.cuda
+def test_a_callers_error_mode_stays_while_recording_on_card(recorder):
+    """Under "error" a sync raises, recorded or not, and the mode stays."""
+    dev, profiling = recorder
+    x = torch.arange(16.0, device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profiling.recording(), pytest.raises(RuntimeError):
+            with profiling.span("item", device=dev):
+                assert torch.cuda.get_sync_debug_mode() == 2
+                x.sum().item()
+        assert torch.cuda.get_sync_debug_mode() == 2
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
