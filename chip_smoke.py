@@ -20,6 +20,13 @@ From the root of a checkout, on a machine with one CUDA card:
    launch), a 1920x1080 frame with a 64x64 mesh, a heavy warp and
    degenerate quads; a digest of its outputs; device ms, host-clock ms per
    call and the plain version's ms at the first three;
+4a. the render kernels (``csrc/render.cu``): the warp and the crop-stretch
+   against their plain versions, torch.equal to them run on the CPU (and
+   the count of bytes that differ from them run on the card), on a
+   64-frame 640x360 block, a 64-frame 1920x1080 block (crops of
+   ``block_crop``) and one online frame (the fixed online crop); device ms
+   a launch and host-clock ms a call beside the bound by bytes and the
+   plain version's ms, and each kernel's warps per SM and registers;
 5. kernel C (LK level, staged footprint): against the plain version and
    bit for bit against kernel A, at the 640x360 tiles (8 pairs and the
    63-pair motion block) and at 1080p track_downscale=1 tiles (16 of
@@ -885,6 +892,90 @@ def phase_kernel_b(device):
                host_ms_1080p_mesh64=out["1080p/64"]["host_ms"])
     for name in BMAP_TIMED[1:]:
         out.pop(name)
+    return out
+
+
+# The render kernels' cases: (W, H, mesh, vertex jitter px, frames, _) as
+# BMAP_CASES, the maps from kernel B.
+RENDER_CASES = {
+    "640x360 block": (640, 360, 16, 3.0, 64, False),
+    "1080p block": (1920, 1080, 16, 6.0, 64, False),
+    "online": (640, 360, 16, 3.0, 1, False),
+}
+
+
+def phase_render_kernels(device, cases=RENDER_CASES):
+    """The warp and crop-stretch kernels against their plain versions on the
+    card at each case of `cases`: torch.equal to the plain version run on
+    the CPU (the gate; the crop scales by IEEE division as the CPU does),
+    the bytes that differ from the plain version run on the card, device ms
+    a launch, host-clock ms a call, the bound by bytes (the warp reads 9 B
+    of map and C B of frame and writes C B a pixel, the crop reads and
+    writes C B) and the plain version's device ms; each kernel's launch
+    shape at C = 3 and 1.  Returns {case: {"warp": row, "crop": row},
+    "shape": ...}."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from meshflow_tpu_torch import online
+    from meshflow_tpu_torch.kernels import _build, bmap_cuda, render_cuda
+    from meshflow_tpu_torch.render.stabilize import BackwardMap, block_crop, border_color
+
+    shape = {}
+    for crop in (0, 1):
+        for c in (3, 1):
+            vals = [ctypes.c_int() for _ in range(2)]
+            _build.check(_build.library().meshflow_render_occupancy(
+                crop, c, *map(ctypes.byref, vals)), "render occupancy")
+            name = f"{'crop' if crop else 'warp'} C={c}"
+            shape[name] = {"warps_per_sm": vals[0].value, "regs": vals[1].value}
+            print(f"render {name}: {vals[0].value} warps/SM, {vals[1].value} registers/thread")
+    out = {"shape": shape}
+    for name in cases:
+        config, stab, unstab, h, w = bmap_inputs(device, name, cases)
+        bmap = bmap_cuda.backward_map(stab, unstab, config, h, w)
+        rng = np.random.default_rng(SEED + h)
+        f = stab.shape[0] if stab.dim() == 4 else 1
+        frames = torch.from_numpy(
+            rng.integers(0, 256, (f, h, w, 3)[f == 1:], dtype=np.uint8)).to(device)
+        crop = (online.online_constants(config, h, w, 0.8, device).crop if f == 1
+                else block_crop(bmap, h, w))
+        border = border_color(config, 3)
+        warped = render_cuda.warp(frames, bmap, border)
+        cropped = render_cuda.crop_resize(warped, crop, h, w)
+        cpu_map = BackwardMap(*(m.cpu() for m in bmap))
+        want = render_cuda.warp_plain(frames.cpu(), cpu_map, border)
+        rows = {}
+        for kernel, got, plain_cpu, plain_card, call, plain_call, per_pixel in (
+            ("warp", warped, lambda: want,
+             lambda: render_cuda.warp_plain(frames, bmap, border),
+             lambda: render_cuda.warp(frames, bmap, border),
+             lambda: render_cuda.warp_plain(frames, bmap, border), 9 + 2 * 3),
+            ("crop", cropped, lambda: render_cuda.crop_resize_plain(want, crop.cpu(), h, w),
+             lambda: render_cuda.crop_resize_plain(warped, crop, h, w),
+             lambda: render_cuda.crop_resize(warped, crop, h, w),
+             lambda: render_cuda.crop_resize_plain(warped, crop, h, w), 2 * 3),
+        ):
+            equal = bool(torch.equal(got.cpu(), plain_cpu()))
+            differ_card = int((got != plain_card()).sum())
+            bound_ms, bound_by = bound(0, f * h * w * per_pixel)
+            row = {"equal_plain_cpu": equal, "bytes_differing_plain_card": differ_card,
+                   "ms": device_ms(call), "host_ms": host_clock_ms(call),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "plain_ms": device_ms(plain_call, launches=1, batches=3)}
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            print(f"render {kernel} {name} ({w}x{h}, {f} frame(s), crop {crop.tolist()}): equal to "
+                  f"the plain version on the CPU {equal}, {differ_card} bytes differ from it on "
+                  f"the card; kernel {row['ms']:.4f} ms (host clock {row['host_ms']:.4f} ms), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, {100 * row['share_of_bound']:.1f}%), "
+                  f"plain {row['plain_ms']:.4f} ms")
+            check(equal, f"render {kernel} differs from its plain version ({name})")
+            rows[kernel] = row
+        check(not bool(cpu_map.covered.all()), f"render {name}: no uncovered pixel")
+        out[name] = rows
+        del frames, warped, cropped, want, bmap, cpu_map
     return out
 
 
@@ -3522,6 +3613,8 @@ def main() -> int:
     lap("kernel_a")
     b = phase_kernel_b(device)
     lap("kernel_b")
+    render = phase_render_kernels(device)
+    lap("render_kernels")
     c = phase_kernel_c(device, cases["motion"])
     lap("kernel_c")
     g = phase_gray_kernels(device)
@@ -3649,6 +3742,13 @@ def main() -> int:
                      "meshflow_tpu/kernels/homography.py:74)",
          "launches_online": online["eig9"], "max_rel_err": eig9.pop("max_rel_err"),
          "digest_moved": eig9.pop("digest_moved"), **eig9},
+    ] + [
+        {"name": f"render_{kernel}", "route": "cuda", "source": "meshflow_tpu_torch/csrc/render.cu",
+         "replaces": "no TPU kernel: the JAX package's XLA-fused warp and crop-stretch "
+                     "(meshflow_tpu/render/stabilize.py)",
+         "launch_shape": {c: v for c, v in render["shape"].items() if c.startswith(kernel)},
+         **{case: rows[kernel] for case, rows in render.items() if case != "shape"}}
+        for kernel in ("warp", "crop")
     ] + [
         {"name": name, "route": "cuda",
          "source": f"meshflow_tpu_torch/csrc/{PROBE_KERNELS[name][0]}", **row}

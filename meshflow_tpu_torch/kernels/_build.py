@@ -151,6 +151,21 @@ def library() -> ctypes.CDLL:
     lib.meshflow_bmap_occupancy.restype = i
     lib.meshflow_eig9.argtypes = [p, p, i, p]  # normal, out, batch, stream
     lib.meshflow_eig9.restype = i
+    lib.meshflow_render_warp.argtypes = [
+        p, p, p, p, p,  # frames, map_x, map_y, covered, out
+        i, i, i, i,  # F, H, W, C
+        f, f, f,  # the border colour
+        p,  # stream
+    ]
+    lib.meshflow_render_warp.restype = i
+    lib.meshflow_render_crop.argtypes = [
+        p, p, i, p,  # frames, crop, crop is int64, out
+        i, i, i, i,  # F, H, W, C
+        p,  # stream
+    ]
+    lib.meshflow_render_crop.restype = i
+    lib.meshflow_render_occupancy.argtypes = [i, i, ip, ip]  # crop, C, warps/SM, registers
+    lib.meshflow_render_occupancy.restype = i
     # probes D-G (csrc/probe_*.cu); every entry point ends with the stream
     for name, args in {
         "meshflow_probe_dynslice_copy": [p, p, p, p, i, i, i, i],

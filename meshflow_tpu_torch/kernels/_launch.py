@@ -56,20 +56,21 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def require(name: str, *specs) -> torch.device:
+def require(name: str, *specs, align: int = 16) -> torch.device:
     """Raise ValueError unless every (tensor, dtype, shape) of `specs` lies
-    on one CUDA device with that dtype and shape, contiguous and 16-byte
-    aligned (the kernels load 16 bytes at a time).  Returns the device."""
+    on one CUDA device with that dtype and shape, contiguous and `align`-byte
+    aligned (16 by default: most kernels load 16 bytes at a time).  Returns
+    the device."""
     device = specs[0][0].device
     for t, dtype, shape in specs:
         if t.device.type != "cuda" or t.device != device:
             raise ValueError(f"{name}: tensors must be on one CUDA device, got {t.device}")
         if (
             t.dtype != dtype or tuple(t.shape) != tuple(shape)
-            or not t.is_contiguous() or t.data_ptr() % 16
+            or not t.is_contiguous() or t.data_ptr() % align
         ):
             raise ValueError(
-                f"{name}: expected a contiguous, 16-byte aligned {dtype} tensor of "
+                f"{name}: expected a contiguous, {align}-byte aligned {dtype} tensor of "
                 f"shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)}"
             )
     return device

@@ -14,7 +14,8 @@ frame of algorithmic latency.  Per frame t:
    p_t = (c_t + 2 lambda_t sum_r w_{t,r} p_r) / (1 + 2 lambda_t sum_r w_{t,r}),
    then clamp p_t - c_t to the reserved cropping margin;
 3. warp frame t by (p_t - c_t) (backward map: kernel B on the card) and
-   apply the fixed reserved-margin crop.
+   apply the fixed reserved-margin crop (both ``csrc/render.cu`` on the
+   card).
 
 Under track_planes="gray" steps 1 and 2 take the frame's exact cv2 gray
 (one plane, full size) and step 3 warps the BGR frame.  The JAX package
@@ -27,8 +28,8 @@ the port runs it as one CUDA graph (``utils/graphs.GraphRunner``): the
 second frame runs the step eagerly, the third captures it and every
 later frame replays it.  The step count is a device tensor, and every tensor
 made from host data (the vertex grid, the subframe offsets, the Gaussian
-band, the margin limit, the crop, the border colour) is made once, by
-``online_constants``, and passed in.
+band, the margin limit, the crop) is made once, by ``online_constants``,
+and passed in; the border colour reaches the warp kernel as its arguments.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ from meshflow_tpu_torch.motion.pipeline import (
 )
 from meshflow_tpu_torch.motion.propagate import vertex_velocities
 from meshflow_tpu_torch.motion.trackscale import planes_dev
-from meshflow_tpu_torch.render.stabilize import crop_resize_frame, warp_frame
+from meshflow_tpu_torch.render.stabilize import border_color, crop_resize_frame, warp_frame
 from meshflow_tpu_torch.solver.jacobi import gaussian_band
 from meshflow_tpu_torch.solver.weights import adaptive_weights
 from meshflow_tpu_torch.utils import graphs, grid, prng
@@ -85,7 +86,6 @@ class OnlineConstants(NamedTuple):
     band: torch.Tensor  # (2*OMEGA+1,) float32 Gaussian taps
     limit: torch.Tensor  # (2,) float32 margins: the clamp of p_t - c_t
     crop: torch.Tensor  # (4,) int32 the fixed crop
-    border: torch.Tensor  # (3,) float32 the border colour
 
 
 def online_constants(config: MeshFlowConfig, frame_height: int, frame_width: int,
@@ -99,8 +99,6 @@ def online_constants(config: MeshFlowConfig, frame_height: int, frame_width: int
         limit=torch.tensor([margin_x, margin_y], dtype=torch.float32, device=device),
         crop=torch.as_tensor(online_crop_rect(frame_width, frame_height, crop_ratio),
                              device=device),
-        border=torch.as_tensor(config.color_outside_image_area_bgr, dtype=torch.float32,
-                               device=device),
     )
 
 
@@ -222,7 +220,7 @@ def _step(prev_planes, prev_kps, unstab_window, stab_window, step, frame, key, c
     bmap = backward_map(
         consts.vgrid + (p_t - c_t), consts.vgrid, config, frame_height, frame_width
     )
-    stabilized = warp_frame(frame, bmap, consts.border)
+    stabilized = warp_frame(frame, bmap, border_color(config, frame.shape[-1]))
     out = crop_resize_frame(stabilized, consts.crop, frame_height, frame_width)
     return (new_state.prev_planes, new_state.prev_kps, new_state.unstab_window,
             new_state.stab_window, new_state.step, out)

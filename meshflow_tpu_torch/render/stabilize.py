@@ -13,7 +13,11 @@
    ``kernels/bmap_cuda.backward_map`` routes a CUDA tensor to kernel B.
 3. The bilinear warp with the border colour (its exact gray for gray
    planes), the per-frame crop edges, and the crop+stretch back to full
-   size (cv2.resize semantics).
+   size (cv2.resize semantics).  ``warp_frame_plain`` and
+   ``crop_resize_frame_plain`` are the plain versions;
+   ``kernels/render_cuda`` routes CUDA tensors to ``csrc/render.cu``, one
+   launch a block, through ``warp_frame``, ``warp_block``,
+   ``crop_resize_frame`` and ``crop_frames``.
 
 Homography tables are read directly in float32; the JAX package's bf16
 Dekker split and uint32 BGR packing were TPU workarounds.
@@ -241,8 +245,9 @@ def bilinear_sample(
     return out
 
 
-def warp_frame(frame: torch.Tensor, bmap: BackwardMap, border_bgr) -> torch.Tensor:
-    """One stabilized uint8 frame (H, W, C) from its backward map."""
+def warp_frame_plain(frame: torch.Tensor, bmap: BackwardMap, border_bgr) -> torch.Tensor:
+    """One stabilized uint8 frame (H, W, C) from its backward map: the plain
+    version."""
     c = frame.shape[-1]
     h, w = bmap.map_x.shape
     sampled = bilinear_sample(
@@ -282,12 +287,12 @@ def crop_edges(bmap: BackwardMap, frame_height: int, frame_width: int) -> torch.
     return torch.stack([left, top, right, bottom], dim=-1)
 
 
-def crop_resize_frame(
+def crop_resize_frame_plain(
     frame: torch.Tensor, crop: torch.Tensor, frame_height: int, frame_width: int
 ) -> torch.Tensor:
     """Crop (..., H, W, C) uint8 to [left, top, right, bottom] (inclusive)
     and stretch back to (H, W): cv2.resize INTER_LINEAR half-pixel
-    sampling, clamped inside the crop."""
+    sampling, clamped inside the crop.  The plain version."""
     device = frame.device
     left, top, right, bottom = (crop[i].to(torch.float32) for i in range(4))
     crop_w = right - left + 1.0
@@ -315,6 +320,25 @@ def crop_resize_frame(
     return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
 
 
+def warp_frame(frame: torch.Tensor, bmap: BackwardMap, border_bgr) -> torch.Tensor:
+    """Stabilized uint8 frames (..., H, W, C) from their backward maps
+    (..., H, W), with the border colour `border_bgr` (C numbers):
+    ``render_cuda.warp``."""
+    from meshflow_tpu_torch.kernels.render_cuda import warp
+
+    return warp(frame, bmap, border_bgr)
+
+
+def crop_resize_frame(
+    frame: torch.Tensor, crop: torch.Tensor, frame_height: int, frame_width: int
+) -> torch.Tensor:
+    """Crop (..., H, W, C) uint8 to [left, top, right, bottom] (inclusive)
+    and stretch back to (H, W): ``render_cuda.crop_resize``."""
+    from meshflow_tpu_torch.kernels.render_cuda import crop_resize
+
+    return crop_resize(frame, crop, frame_height, frame_width)
+
+
 def border_color(config: MeshFlowConfig, channels: int):
     """The colour outside the warped image for frames of `channels` planes:
     the config's BGR triple, or its exact gray for gray planes (C=1), so
@@ -325,14 +349,9 @@ def border_color(config: MeshFlowConfig, channels: int):
 
 def warp_block(frames: torch.Tensor, bmap: BackwardMap, config: MeshFlowConfig) -> torch.Tensor:
     """Warp a block of frames (F, H, W, C) uint8 by its backward maps
-    (F, H, W) with the border colour of C planes."""
-    border = border_color(config, frames.shape[-1])
-    return torch.stack(
-        [
-            warp_frame(frames[i], BackwardMap(*(m[i] for m in bmap)), border)
-            for i in range(frames.shape[0])
-        ]
-    )
+    (F, H, W) with the border colour of C planes (``warp_frame`` of the
+    block: one launch on the card)."""
+    return warp_frame(frames, bmap, border_color(config, frames.shape[-1]))
 
 
 def render_stabilized(
@@ -419,9 +438,8 @@ def intersect_crops(crops) -> torch.Tensor:
 def crop_frames(
     stabilized: torch.Tensor, crop: torch.Tensor, frame_height: int, frame_width: int
 ) -> torch.Tensor:
-    """Crop+stretch every frame back to full resolution (span
-    ``render.crop``)."""
+    """Crop+stretch every frame (F, H, W, C) back to full resolution (span
+    ``render.crop``; ``crop_resize_frame`` of the block: one launch on the
+    card)."""
     with span("render.crop"):
-        return torch.stack(
-            [crop_resize_frame(f, crop, frame_height, frame_width) for f in stabilized]
-        )
+        return crop_resize_frame(stabilized, crop, frame_height, frame_width)

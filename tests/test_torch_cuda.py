@@ -145,6 +145,7 @@ def test_build_key_follows_sources():
     assert sorted(p.name for p in _build.SRC_DIR.glob("*.cu")) == [
         "bmap.cu", "eig9.cu", "lk_band.cu", "lk_level.cu", "probe_aligned_dynslice.cu",
         "probe_dynslice_fetch.cu", "probe_scalar_from_vmem.cu", "probe_select_rows.cu",
+        "render.cu",
     ]
     assert sorted(p.name for p in _build.SRC_DIR.glob("*.cuh")) == ["lk_common.cuh", "probes.cuh"]
 
