@@ -15,6 +15,13 @@ worker through shared memory, and a ``streaming.CaptureWriter`` in the
 job is filled with the frames the worker captured.  The configuration
 and ``MeshFlowStabilizer.CHUNK`` are the caller's, passed to the worker.
 
+A call is the span recorder's request ``batch.call``; with worker
+processes it holds ``batch.share_in`` (the clips copied into shared
+memory), ``batch.map`` (the jobs on the workers, each recorded in its
+worker as a ``stabilize`` request while the recorder is on, returned in
+``workers.current().last_usage``) and ``batch.share_out`` (the captured
+frames written to the jobs' writers).
+
 CLI: python -m meshflow_tpu_torch.parallel.batch manifest.json
   manifest: [{"input": ..., "output": ..., "variant": "original"}, ...]
   prints one JSON line of metrics per job, in manifest order.
@@ -35,6 +42,7 @@ from meshflow_tpu_torch import config as cfg
 from meshflow_tpu_torch import streaming
 from meshflow_tpu_torch.config import MeshFlowConfig
 from meshflow_tpu_torch.parallel import device_list, workers
+from meshflow_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -121,13 +129,19 @@ def stabilize_batch(
     config = MeshFlowConfig() if config is None else config
     chunk = MeshFlowStabilizer.CHUNK
     num_workers = max(1, min(len(devices), len(jobs)))
-    if num_workers == 1:
-        return tuple(_run(job, config, seed, devices[0], chunk) for job in jobs)
-    pool = workers.pool(devices)
-    answers = pool.map(_run_in_worker, [(_for_worker(job), config, seed, chunk) for job in jobs])
-    for job, (_, frames) in zip(jobs, answers):
-        if frames is not None:
-            job.output_path.write(frames.numpy())
+    # the parent of worker processes makes no device work of its own
+    with profiling.span("batch.call", device=devices[0] if num_workers == 1 else None):
+        if num_workers == 1:
+            return tuple(_run(job, config, seed, devices[0], chunk) for job in jobs)
+        pool = workers.pool(devices)
+        with profiling.span("batch.share_in"):
+            sent = [(_for_worker(job), config, seed, chunk) for job in jobs]
+        with profiling.span("batch.map"):
+            answers = pool.map(_run_in_worker, sent)
+        with profiling.span("batch.share_out"):
+            for job, (_, frames) in zip(jobs, answers):
+                if frames is not None:
+                    job.output_path.write(frames.numpy())
     return tuple(metrics for metrics, _ in answers)
 
 

@@ -23,13 +23,21 @@ of the sharded path between calls of one shape (``WorkerPool.shared``),
 and a child keeps its last task's arguments until the next task has
 arrived, so a buffer sent again maps to the pages the child already has.
 
+A child says it is ready once it has imported the port and made its
+device current; the pool's start (span ``batch.pool_start``) waits for
+every child, and a child that exits first raises ``WorkerError`` there.
 A task is a picklable function and its arguments, sent over the child's
 pipe with the parent's ``MESHFLOW_*`` environment of the call (a child
 does not see what the parent changes after it started).  The child
 answers with the result and its usage: the launches of the kernel
 wrappers during the task, which the parent adds into its own wrappers'
 ``.launches``; the CUDA graphs it captured and replayed; the task's CPU
-seconds; and the device's peak memory.  A
+seconds; the device's peak memory, allocated (``peak_bytes``) and
+reserved (``peak_reserved_bytes``, where a CUDA graph's pool sits); and,
+when the parent's span recorder was on as the call began, the task's
+ended requests as ``profiling.plain`` records (``requests``: the child
+records the task under ``profiling.recording()``).  ``last_usage`` keeps
+these per child over a call.  A
 child's exception is raised again in the parent as ``WorkerError`` with
 the child's traceback, and a child that exits raises one with its exit
 code; either closes the pool, so that no rank is left waiting in a
@@ -58,7 +66,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from meshflow_tpu_torch.utils import graphs
+from meshflow_tpu_torch.utils import graphs, profiling
 
 _POOL = None  # the live pool, if any
 _DEVICE = None  # a child's device; None in a process that is no worker
@@ -123,9 +131,16 @@ def _wrappers() -> dict:
             "backward_map": bmap_cuda.backward_map, "eig9": eig9_cuda.null_vector}
 
 
-def _run_task(fn, args, env):
-    """fn(*args) under the call's environment; (ok, result or traceback
-    text, usage)."""
+def empty_usage() -> dict:
+    """A child's usage over a call before its first task (an entry of
+    ``WorkerPool.last_usage``)."""
+    return {"tasks": 0, "launches": {}, "cpu_seconds": 0.0, "peak_bytes": None,
+            "peak_reserved_bytes": None, "graphs": (0, 0), "requests": []}
+
+
+def _run_task(fn, args, env, record):
+    """fn(*args) under the call's environment, recorded by the span
+    recorder where `record`; (ok, result or traceback text, usage)."""
     for name in [n for n in os.environ if n.startswith("MESHFLOW_") and n not in env]:
         del os.environ[name]
     os.environ.update(env)
@@ -135,9 +150,11 @@ def _run_task(fn, args, env):
     on_card = _DEVICE.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(_DEVICE)
+    profiling.clear()
     cpu = time.process_time()
     try:
-        result, ok = fn(*args), True
+        with profiling.recording(record):
+            result, ok = fn(*args), True
     except BaseException:  # raised again in the parent
         ok, result = False, traceback.format_exc()
     usage = {
@@ -146,9 +163,17 @@ def _run_task(fn, args, env):
                    graphs.totals["replays"] - graphs_before[1]),
         "cpu_seconds": time.process_time() - cpu,
         "peak_bytes": torch.cuda.max_memory_allocated(_DEVICE) if on_card else None,
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved(_DEVICE) if on_card else None,
+        "requests": profiling.plain(profiling.requests()) if record else [],
     }
+    profiling.clear()
     if on_card:
-        torch.cuda.empty_cache()  # an idle worker holds no device memory
+        # An idle worker holds no device memory.  cuBLAS keeps a workspace
+        # for each stream it ran on, allocated and never freed, and each
+        # job's graph runner warms up on a stream of its own: without this
+        # a worker kept 32 MiB more after every job (H100 80GB HBM3).
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
     return ok, result, usage
 
 
@@ -161,6 +186,9 @@ def _child_main(device_name: str, threads: int, conn) -> None:
     _DEVICE = torch.device(device_name)
     if _DEVICE.type == "cuda":
         torch.cuda.set_device(_DEVICE)
+    import meshflow_tpu_torch.api  # noqa: F401  (the port, before the first task)
+
+    conn.send("ready")
     try:
         while True:
             try:
@@ -171,8 +199,8 @@ def _child_main(device_name: str, threads: int, conn) -> None:
                 break
             if task is None:
                 break
-            task_id, fn, args, env = task
-            ok, result, usage = _run_task(fn, args, env)
+            task_id, fn, args, env, record = task
+            ok, result, usage = _run_task(fn, args, env, record)
             try:
                 conn.send((task_id, ok, result, usage))
             except Exception:  # the result does not pickle: say so instead
@@ -210,15 +238,36 @@ class WorkerPool:
         ctx = mp.get_context("spawn")
         threads = max(1, torch.get_num_threads() // len(self.devices))
         self.conns, self.procs = [], []
-        for i, d in enumerate(self.devices):
-            parent_end, child_end = ctx.Pipe()
-            proc = ctx.Process(target=_child_main, args=(str(d), threads, child_end),
-                               name=f"meshflow-worker-{i}-{d}", daemon=True)
-            proc.start()
-            child_end.close()  # so that the child's exit shows as EOF here
-            self.conns.append(parent_end)
-            self.procs.append(proc)
+        with profiling.span("batch.pool_start"):
+            for i, d in enumerate(self.devices):
+                parent_end, child_end = ctx.Pipe()
+                proc = ctx.Process(target=_child_main, args=(str(d), threads, child_end),
+                                   name=f"meshflow-worker-{i}-{d}", daemon=True)
+                proc.start()
+                child_end.close()  # so that the child's exit shows as EOF here
+                self.conns.append(parent_end)
+                self.procs.append(proc)
+            self._wait_ready()
         _POOL = self
+
+    def _wait_ready(self) -> None:
+        """Wait for every child's ready message; WorkerError (the pool
+        closed) for a child that exits first."""
+        waiting = set(range(len(self.procs)))
+        while waiting:
+            by_object = {self.conns[c]: c for c in waiting}
+            by_object.update({self.procs[c].sentinel: c for c in waiting})
+            for ready in connection.wait(list(by_object)):
+                child = by_object[ready]
+                if child not in waiting:
+                    continue
+                try:
+                    self.conns[child].recv()
+                except (EOFError, OSError):  # the child's end closed: it exited
+                    self.procs[child].join(5)
+                    self._fail(child, f"exited with code {self.procs[child].exitcode} "
+                                      "before it was ready")
+                waiting.discard(child)
 
     def shared(self, name: str, shape, dtype) -> torch.Tensor:
         """A CPU tensor in shared memory, kept by the pool for later calls
@@ -276,12 +325,12 @@ class WorkerPool:
 
     def _begin(self) -> None:
         self._env = {k: v for k, v in os.environ.items() if k.startswith("MESHFLOW_")}
-        self.last_usage = [{"tasks": 0, "launches": {}, "cpu_seconds": 0.0, "peak_bytes": None,
-                            "graphs": (0, 0)} for _ in self.procs]
+        self._record = profiling.enabled()
+        self.last_usage = [empty_usage() for _ in self.procs]
 
     def _send(self, child: int, task_id: int, fn, args) -> None:
         try:
-            self.conns[child].send((task_id, fn, args, self._env))
+            self.conns[child].send((task_id, fn, args, self._env, self._record))
         except OSError:
             self._fail(child, None)
 
@@ -313,8 +362,10 @@ class WorkerPool:
         for name, n in usage["launches"].items():
             wrappers[name].launches += n
             total["launches"][name] = total["launches"].get(name, 0) + n
-        if usage["peak_bytes"] is not None:
-            total["peak_bytes"] = max(total["peak_bytes"] or 0, usage["peak_bytes"])
+        for key in ("peak_bytes", "peak_reserved_bytes"):
+            if usage[key] is not None:
+                total[key] = max(total[key] or 0, usage[key])
+        total["requests"].extend(usage["requests"])
 
     def _fail(self, child: int, what) -> None:
         proc = self.procs[child]

@@ -29,6 +29,10 @@ pass 2 (host -> device -> host):  per CHUNK block, the frames come from
     encoder.  Under track_planes="gray" the blocks stay BGR on the device
     and the trackers take their gray planes, derived there.
 
+Pass 1 is the span ``stream.pass1`` and the solve, crop scan and pass 2
+the span ``stream.pass2`` (``utils/profiling.py``), under the
+``stabilize`` request of ``MeshFlowStabilizer.stabilize``.
+
 Every block of pass 2 is the in-memory route's block, so the output
 frames and the three metrics equal ``_stabilize_frames``' bit for bit.
 MESHFLOW_INFLIGHT bounds how many pass-1 windows the host queues ahead of
@@ -79,7 +83,7 @@ from meshflow_tpu_torch.render.stabilize import (
 )
 from meshflow_tpu_torch.solver.jacobi import jacobi_smooth
 from meshflow_tpu_torch.solver.weights import adaptive_weights
-from meshflow_tpu_torch.utils import graphs, grid, prng
+from meshflow_tpu_torch.utils import graphs, grid, prng, profiling
 
 STAGES = (
     "decode", "host->device", "detect+motion", "motion (sync)", "solver", "crop scan",
@@ -355,7 +359,8 @@ def stabilize_streamed(
             [], None,
         )
     else:
-        state = _pass1(clip, info, config, key, device, chunk, acc, runner)
+        with profiling.span("stream.pass1", device=device):
+            state = _pass1(clip, info, config, key, device, chunk, acc, runner)
         if ckpt_path:
             motion, kps = state.motion, state.keypoints
             ckpt_mod.save_motion(ckpt_path, ckpt_mod.MotionCheckpoint(
@@ -363,8 +368,9 @@ def stabilize_streamed(
                                             motion.pair_ok, kps.positions, kps.scores,
                                             kps.valid))
             ))
-    result = _solve_and_render(clip, output, info, adaptive_weights_definition, config, key,
-                               device, chunk, acc, state, runner)
+    with profiling.span("stream.pass2", device=device):
+        result = _solve_and_render(clip, output, info, adaptive_weights_definition, config,
+                                   key, device, chunk, acc, state, runner)
     acc.flush()
     return result
 

@@ -288,6 +288,12 @@ class _Live:
         return False
 
 
+def enabled() -> bool:
+    """Whether the recorder is on (a profiler records, or inside
+    ``recording()``)."""
+    return bool(_switch or _torch_profiler._is_profiler_enabled)
+
+
 def span(name: str, unit: Optional[str] = None, device=None):
     """A span `name` (``name:unit`` when `unit` is given) around a `with`
     block: the recorder's Span while it is on, else None.  `device`, for
@@ -339,6 +345,21 @@ def requests() -> List[Request]:
     for req in out:
         req._resolve()
     return out
+
+
+def plain(requests: List[Request]) -> List[dict]:
+    """Resolved `requests` as plain picklable records, the form in which a
+    worker process hands its record to its parent: for each request its
+    root's name, its device (a string, or None) and ``profiled``, and
+    ``spans``, root first, each with its name, parent, host interval in
+    ``perf_counter_ns`` (CLOCK_MONOTONIC: comparable across the processes
+    of one host), device ms and syncs."""
+    return [{"root": r.root.name, "device": None if r.device is None else str(r.device),
+             "profiled": r.profiled,
+             "spans": [{"name": s.name, "parent": s.parent, "host_start_ns": s.host_start_ns,
+                        "host_end_ns": s.host_end_ns, "device_ms": s.device_ms,
+                        "syncs": s.syncs} for s in r.spans]}
+            for r in requests]
 
 
 def clear() -> None:
