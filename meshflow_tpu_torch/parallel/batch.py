@@ -10,17 +10,27 @@ the results come back in job order.  One worker runs in the calling
 process.
 
 A job's input and output are paths, which travel as they are, or the
-objects the stream takes: an ``streaming.ArrayClip``'s frames go to the
-worker through shared memory, and a ``streaming.CaptureWriter`` in the
-job is filled with the frames the worker captured.  The configuration
-and ``MeshFlowStabilizer.CHUNK`` are the caller's, passed to the worker.
+objects the stream takes.  With worker processes a job's frames live in
+slots that the pool keeps between calls (``WorkerPool.slots``): job k's
+``streaming.ArrayClip`` is copied into input slot k, and the worker
+reads it there; where the job also writes to a ``streaming.CaptureWriter``,
+the worker writes each block of the stream straight into output slot k,
+of the clip's shape, and the caller copies the frames written from there
+into the job's writer, which owns that copy (the next call reuses the
+slot).  A slot is kept while a call's clip k has its frame size and no
+more frames, and replaced by a larger one otherwise; the slots of the
+last call are all the shared memory held between calls.  A
+``CaptureWriter`` after a path input gets its frames through the pipe.
+The configuration and ``MeshFlowStabilizer.CHUNK`` are the caller's,
+passed to the worker.
 
 A call is the span recorder's request ``batch.call``; with worker
-processes it holds ``batch.share_in`` (the clips copied into shared
-memory), ``batch.map`` (the jobs on the workers, each recorded in its
+processes it holds ``batch.share_in`` (the slots taken, each a span
+``batch.slot:kept`` or ``batch.slot:new``, and the clips copied into
+them), ``batch.map`` (the jobs on the workers, each recorded in its
 worker as a ``stabilize`` request while the recorder is on, returned in
-``workers.current().last_usage``) and ``batch.share_out`` (the captured
-frames written to the jobs' writers).
+``workers.current().last_usage``) and ``batch.share_out`` (the frames
+written to the jobs' writers).
 
 CLI: python -m meshflow_tpu_torch.parallel.batch manifest.json
   manifest: [{"input": ..., "output": ..., "variant": "original"}, ...]
@@ -69,37 +79,70 @@ def _run(job: BatchJob, config, seed, device, chunk):
             stabilizer.close()
 
 
-def _shared(array) -> torch.Tensor:
-    """uint8 `array` copied into shared memory by numpy, on one thread (a
-    torch copy would run on the caller's intra-op threads)."""
-    out = workers.shared_empty(array.shape, torch.uint8)
-    np.copyto(out.numpy(), np.asarray(array))
-    return out
+class _SlotWriter:
+    """The stream's writer in a worker: each block copied into the job's
+    output slot at a running frame position."""
+
+    def __init__(self, slot: np.ndarray):
+        self.slot, self.count = slot, 0
+
+    def write(self, frames: np.ndarray) -> None:
+        end = self.count + len(frames)
+        if frames.shape[1:] != self.slot.shape[1:] or end > len(self.slot):
+            raise ValueError(f"a block of {frames.shape} at frame {self.count} does not fit "
+                             f"the output slot of {self.slot.shape}")
+        np.copyto(self.slot[self.count : end], frames)
+        self.count = end
+
+    def close(self) -> None:
+        pass
 
 
-def _for_worker(job: BatchJob) -> BatchJob:
-    """The job as a worker takes it: an ArrayClip as (frames in shared
-    memory, fps, path), a CaptureWriter as None (captured in the worker)."""
-    clip, output = job.input_path, job.output_path
-    if isinstance(clip, streaming.ArrayClip):
-        clip = (_shared(clip.frames), clip.fps, clip.path)
-    if isinstance(output, streaming.CaptureWriter):
-        output = None
-    elif not isinstance(output, (str, os.PathLike)):
-        raise TypeError(f"a batch worker writes to a path or a CaptureWriter, not {output!r}")
-    return dataclasses.replace(job, input_path=clip, output_path=output)
+def _share_in(pool: workers.WorkerPool, jobs) -> tuple:
+    """(each job as a worker takes it, the call's slots by name): an
+    ArrayClip as (its input slot's name and view, fps, path), copied there
+    by numpy on one thread (a torch copy would run on the caller's
+    intra-op threads); a CaptureWriter as its output slot's name and view
+    after an ArrayClip, else None (captured in the worker)."""
+    shapes = {}
+    for k, job in enumerate(jobs):
+        if isinstance(job.input_path, streaming.ArrayClip):
+            shapes[f"batch.in.{k}"] = job.input_path.frames.shape
+            if isinstance(job.output_path, streaming.CaptureWriter):
+                shapes[f"batch.out.{k}"] = job.input_path.frames.shape
+    slots = pool.slots(shapes)
+    sent = []
+    for k, job in enumerate(jobs):
+        clip, output = job.input_path, job.output_path
+        if isinstance(clip, streaming.ArrayClip):
+            name = f"batch.in.{k}"
+            np.copyto(slots[name].numpy(), np.asarray(clip.frames))
+            clip = ((name, slots[name]), clip.fps, clip.path)
+        if isinstance(output, streaming.CaptureWriter):
+            name = f"batch.out.{k}"
+            output = (name, slots[name]) if name in slots else None
+        elif not isinstance(output, (str, os.PathLike)):
+            raise TypeError(f"a batch worker writes to a path or a CaptureWriter, not {output!r}")
+        sent.append(dataclasses.replace(job, input_path=clip, output_path=output))
+    return sent, slots
 
 
 def _run_in_worker(job: BatchJob, config, seed, chunk):
-    """A worker's job: (metrics, the captured frames in shared memory or
-    None)."""
-    clip = job.input_path
+    """A worker's job: (metrics, the frames written into its output slot,
+    the captured frames without one, or None for a path)."""
+    clip, output = job.input_path, job.output_path
     if isinstance(clip, tuple):
-        clip = streaming.ArrayClip(clip[0].numpy(), fps=clip[1], path=clip[2])
-    writer = streaming.CaptureWriter() if job.output_path is None else job.output_path
+        (name, frames), fps, path = clip
+        clip = streaming.ArrayClip(workers.hold(name, frames).numpy(), fps=fps, path=path)
+    if isinstance(output, tuple):
+        writer = _SlotWriter(workers.hold(*output).numpy())
+    else:
+        writer = streaming.CaptureWriter() if output is None else output
     metrics = _run(dataclasses.replace(job, input_path=clip, output_path=writer), config, seed,
                    workers.device(), chunk)
-    return metrics, (_shared(writer.frames()) if job.output_path is None else None)
+    if isinstance(writer, _SlotWriter):
+        return metrics, writer.count
+    return metrics, (writer.frames() if output is None else None)
 
 
 def stabilize_batch(
@@ -135,13 +178,15 @@ def stabilize_batch(
             return tuple(_run(job, config, seed, devices[0], chunk) for job in jobs)
         pool = workers.pool(devices)
         with profiling.span("batch.share_in"):
-            sent = [(_for_worker(job), config, seed, chunk) for job in jobs]
+            sent, slots = _share_in(pool, jobs)
         with profiling.span("batch.map"):
-            answers = pool.map(_run_in_worker, sent)
+            answers = pool.map(_run_in_worker, [(job, config, seed, chunk) for job in sent])
         with profiling.span("batch.share_out"):
-            for job, (_, frames) in zip(jobs, answers):
+            for k, (job, (_, frames)) in enumerate(zip(jobs, answers)):
+                if isinstance(frames, int):
+                    frames = slots[f"batch.out.{k}"][:frames].numpy()
                 if frames is not None:
-                    job.output_path.write(frames.numpy())
+                    job.output_path.write(frames)
     return tuple(metrics for metrics, _ in answers)
 
 

@@ -23,6 +23,15 @@ of the sharded path between calls of one shape (``WorkerPool.shared``),
 and a child keeps its last task's arguments until the next task has
 arrived, so a buffer sent again maps to the pages the child already has.
 
+The batch's frames live in slots (``WorkerPool.slots``): uint8 tensors in
+shared memory that the pool keeps by name, apart from ``shared``'s
+buffers, and reuses while a call's frames fit them, so that a call
+copies into pages already made instead of faulting in new ones.  A child
+holds each slot it was sent under the slot's name (``hold``), so that its
+next job on that slot finds the storage, and the pages, still mapped;
+when the pool drops or replaces a slot it has every child let go of it.
+The slots live until the pool closes.
+
 A child says it is ready once it has imported the port and made its
 device current; the pool's start (span ``batch.pool_start``) waits for
 every child, and a child that exits first raises ``WorkerError`` there.
@@ -70,6 +79,7 @@ from meshflow_tpu_torch.utils import graphs, profiling
 
 _POOL = None  # the live pool, if any
 _DEVICE = None  # a child's device; None in a process that is no worker
+_HELD = {}  # a child's slots by name (``hold``)
 
 
 class WorkerError(RuntimeError):
@@ -106,6 +116,21 @@ def shared_empty(shape, dtype) -> torch.Tensor:
     nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
     storage = torch.UntypedStorage._new_shared(nbytes)
     return torch.empty(0, dtype=dtype).set_(storage).view(tuple(shape))
+
+
+def hold(name: str, tensor: torch.Tensor) -> torch.Tensor:
+    """`tensor`, a slot sent to this child, held under the slot's `name`
+    until the pool has the child let go of it: while its storage lives,
+    torch's sharing finds it again when the slot is sent anew, instead of
+    mapping it afresh."""
+    _HELD[name] = tensor
+    return tensor
+
+
+def _let_go(names) -> None:
+    """A child's side of a dropped or replaced slot."""
+    for name in names:
+        _HELD.pop(name, None)
 
 
 def current() -> "WorkerPool | None":
@@ -229,6 +254,7 @@ class WorkerPool:
         self.last_usage = []
         self._store_dir = None
         self._buffers = {}
+        self._slots = {}
         if any(d.type == "cuda" for d in self.devices):
             # Build and load the kernels once here: the children find the
             # cached library instead of each running nvcc.
@@ -278,6 +304,32 @@ class WorkerPool:
         if found is None or found[0] != key:
             self._buffers[name] = (key, shared_empty(shape, dtype))
         return self._buffers[name][1]
+
+    def slots(self, shapes: dict) -> dict:
+        """The slots of one call by name (`shapes`: name -> shape of uint8
+        frames): each a view of the first ``shape[0]`` rows of the uint8
+        tensor in shared memory that the pool keeps under that name.  The
+        kept one serves when its rows have ``shape[1:]`` and it has at least
+        ``shape[0]`` of them (span ``batch.slot:kept``), else a new one takes
+        its place (span ``batch.slot:new``, around making it).  Slots of
+        other names are dropped, and the children let go of every slot
+        dropped or replaced before the call's tasks are sent."""
+        def fits(name):
+            found, shape = self._slots[name], tuple(shapes[name])
+            return found.shape[1:] == shape[1:] and found.shape[0] >= shape[0]
+
+        gone = [n for n in self._slots if n not in shapes or not fits(n)]
+        for name in gone:
+            del self._slots[name]
+        if gone:
+            self.each(_let_go, [(gone,)] * len(self.procs))
+        out = {}
+        for name, shape in shapes.items():
+            with profiling.span("batch.slot", "kept" if name in self._slots else "new"):
+                if name not in self._slots:
+                    self._slots[name] = shared_empty(shape, torch.uint8)
+                out[name] = self._slots[name][: shape[0]]
+        return out
 
     # -- tasks ---------------------------------------------------------
     def map(self, fn, args_list) -> list:
@@ -383,6 +435,7 @@ class WorkerPool:
         if _POOL is self:
             _POOL = None
         self._buffers = {}
+        self._slots = {}
         for conn, proc in zip(self.conns, self.procs):
             if not terminate and proc.is_alive():
                 try:

@@ -3,8 +3,10 @@ worker processes, each job through ``MeshFlowStabilizer.stabilize`` and so
 the two-pass stream, held against the plain reference of the batch
 (``portbench/reference/batch.py``: job k's result is clip k's solo result)
 under the limits of the benchmark's batch cell; the spans a traced call
-brings back from the parent and the workers; the workers' reserved peak on
-the card; and a worker that exits before it is ready.
+brings back from the parent and the workers; the shared-memory slots the
+pool keeps between calls (reused, replaced, dropped, and never the
+frames a job's writer owns); the workers' reserved peak on the card; and
+a worker that exits before it is ready.
 
 CPU, ``tests/test_torch_parallel.py``'s small geometry and truncated
 configuration, one pool of two CPU workers for the file.  Every test that
@@ -16,6 +18,7 @@ import json
 import signal
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -62,9 +65,9 @@ def close_pools():
     workers.shutdown()
 
 
-def _clips(count):
+def _clips(count, seed=91, frames=FRAMES):
     """`count` distinct seeded clips (the benchmark's generator)."""
-    return [bench_clips.synthetic_clip([91, i], FRAMES, H, W, pan=12) for i in range(count)]
+    return [bench_clips.synthetic_clip([seed, i], frames, H, W, pan=12) for i in range(count)]
 
 
 def _call(made, devices=CPUS):
@@ -106,16 +109,31 @@ def test_swapped_job_order_fails_the_limits(three_jobs):
         assert not correct, (k, checks)
 
 
+def _slot_spans():
+    """The slot spans of the one recorded ``batch.call``."""
+    (call,) = [r for r in profiling.requests() if r.root.name == "batch.call"]
+    return [s.name for s in call.spans if s.name.startswith("batch.slot")]
+
+
+def _same(outs, others):
+    for (frames, scores), (other_frames, other_scores) in zip(outs, others, strict=True):
+        assert np.array_equal(frames, other_frames)
+        assert scores == other_scores
+
+
 def test_traced_call_brings_back_workers_and_parent_spans():
     made = _clips(2)
+    with time_limit(180):
+        _call(made)  # the slots of two such jobs, whatever ran before
     profiling.clear()
     with time_limit(180), profiling.recording():
         _call(made)
     parent = [r for r in profiling.requests() if r.root.name == "batch.call"]
     assert len(parent) == 1
-    assert [s.name for s in parent[0].spans] == ["batch.call", "batch.share_in", "batch.map",
-                                                 "batch.share_out"]
-    assert all(s.parent == 0 for s in parent[0].spans[1:])
+    assert [s.name for s in parent[0].spans] == (
+        ["batch.call", "batch.share_in"] + ["batch.slot:kept"] * 4
+        + ["batch.map", "batch.share_out"])
+    assert [s.parent for s in parent[0].spans[1:]] == [0] + [1] * 4 + [0, 0]
     usage = workers.current().last_usage
     assert [u["tasks"] for u in usage] == [1, 1]
     call = parent[0].root
@@ -133,6 +151,89 @@ def test_traced_call_brings_back_workers_and_parent_spans():
         _call(made)  # recorder off: the workers record nothing
     assert profiling.requests() == []
     assert all(u["requests"] == [] for u in workers.current().last_usage)
+
+
+def test_a_second_call_keeps_its_slots_and_gives_the_same_results():
+    """A call of the same clips again takes every slot it had: its frames
+    and scores equal the first call's and the in-process batch's."""
+    made = _clips(2, seed=92)
+    with time_limit(240):
+        first = _call(made)
+        profiling.clear()
+        with profiling.recording():
+            second = _call(made)
+    assert _slot_spans() == ["batch.slot:kept"] * 4
+    _same(second, first)
+    _same(second, _call(made, devices=CPUS[:1]))  # one entry: no pool, no slot
+
+
+def test_a_writer_owns_its_frames_after_the_next_call():
+    """The next call, of other clips, reuses the slots; the frames the last
+    call's writers hold stay as they were: each owns a copy."""
+    with time_limit(240):
+        jobs = [batch.BatchJob(streaming.ArrayClip(c), streaming.CaptureWriter(), 0)
+                for c in _clips(2, seed=93)]
+        batch.stabilize_batch(jobs, config=MeshFlowConfig(**SMALL), devices=CPUS)
+        before = [job.output_path.frames() for job in jobs]
+        others = _call(_clips(2, seed=94))
+    for job, frames, (other, _) in zip(jobs, before, others):
+        assert not np.array_equal(other, frames)
+        assert np.array_equal(job.output_path.frames(), frames)
+
+
+def test_longer_clips_take_new_slots_and_stay_right():
+    """Clips longer than the slots replace them by larger ones; shorter
+    clips after them take views of those.  The frames and scores equal the
+    in-process batch's."""
+    longer, shorter = _clips(2, seed=95, frames=FRAMES + 4), _clips(2, seed=96)
+    with time_limit(300):
+        _call(_clips(2))
+        profiling.clear()
+        with profiling.recording():
+            outs = _call(longer)
+        assert _slot_spans() == ["batch.slot:new"] * 4
+        profiling.clear()
+        with profiling.recording():
+            short_outs = _call(shorter)
+        assert _slot_spans() == ["batch.slot:kept"] * 4
+        slots = workers.current()._slots
+        _same(outs, _call(longer, devices=CPUS[:1]))
+        _same(short_outs, _call(shorter, devices=CPUS[:1]))
+    assert {name: t.shape[0] for name, t in slots.items()} == {
+        f"batch.{side}.{k}": FRAMES + 4 for side in ("in", "out") for k in range(2)}
+
+
+# Run in a worker: the names of the slots it holds.
+CHILD_HELD = "sorted(__import__('meshflow_tpu_torch.parallel.workers').parallel.workers._HELD)"
+
+
+def test_a_call_with_fewer_jobs_leaves_only_its_slots():
+    """After three jobs, a call of two leaves the pool, and every worker,
+    holding only that call's slots."""
+    with time_limit(240):
+        _call(_clips(3))
+        pool = workers.current()
+        assert len(pool._slots) == 6
+        assert sorted(n for held in pool.each(eval, [(CHILD_HELD,)] * 2) for n in held) == \
+            sorted(pool._slots)
+        _call(_clips(2))
+        held = pool.each(eval, [(CHILD_HELD,)] * 2)
+    names = {f"batch.{side}.{k}" for side in ("in", "out") for k in range(2)}
+    assert set(pool._slots) == names
+    assert set().union(*held) <= names
+
+
+def test_a_slot_writer_never_writes_past_its_slot():
+    slot = np.zeros((4, 2, 3, 3), np.uint8)
+    writer = batch._SlotWriter(slot)
+    writer.write(np.full((3, 2, 3, 3), 7, np.uint8))
+    with pytest.raises(ValueError, match="does not fit"):
+        writer.write(np.ones((2, 2, 3, 3), np.uint8))
+    with pytest.raises(ValueError, match="does not fit"):
+        writer.write(np.ones((1, 3, 2, 3), np.uint8))
+    writer.write(np.full((1, 2, 3, 3), 9, np.uint8))
+    assert writer.count == 4
+    assert (slot[:3] == 7).all() and (slot[3] == 9).all()
 
 
 @pytest.mark.cuda

@@ -313,15 +313,23 @@ def test_workers_are_processes_of_their_own():
 
 def test_pool_keeps_its_buffers_and_one_pool_lives():
     """Two sharded calls of one shape share the pool's host buffers, yet
-    the first call's result is its own (a copy, not the buffer); a pool of
-    another list closes the last one."""
+    the first call's result is its own (a copy, not the buffer); a batch
+    call between them takes slots of its own and leaves the buffers as
+    they were; a pool of another list closes the last one."""
+    from meshflow_tpu_torch import streaming
+
     rng = np.random.default_rng(10)
     lambdas = torch.from_numpy(rng.uniform(0.5, 30, 12).astype(np.float32))
     bs = [torch.from_numpy(rng.normal(0, 5, (12, 3, 4, 2)).astype(np.float32)) for _ in range(2)]
-    with time_limit(120):
+    jobs = [batch.BatchJob(streaming.ArrayClip(_frames(8, seed=70 + i)), streaming.CaptureWriter(),
+                           0) for i in range(2)]
+    with time_limit(300):
         first = smooth_sharded(bs[0], lambdas, 5, 10, devices=CPUS)
         pool = workers.pool(CPUS)
         buffers = {name: t.data_ptr() for name, (_, t) in pool._buffers.items()}
+        batch.stabilize_batch(jobs, config=MeshFlowConfig(**SMALL), devices=CPUS)
+        assert workers.pool(CPUS) is pool and len(pool._slots) == 4
+        assert {name: t.data_ptr() for name, (_, t) in pool._buffers.items()} == buffers
         second = smooth_sharded(bs[1], lambdas, 5, 10, devices=CPUS)
         assert workers.pool(CPUS) is pool
         assert {name: t.data_ptr() for name, (_, t) in pool._buffers.items()} == buffers
