@@ -53,8 +53,9 @@ From the root of a checkout, on a machine with one CUDA card:
    versions), whose outputs must agree;
 11. native_io: whether ``native/libmeshflow_videoio.so`` (libav decode and
    encode) loads on the machine, and the loader's reason when it does not;
-12. streamed: ``streaming.stabilize_streamed`` on the 300-frame 640x360
-   clip through an array-backed clip and a capturing writer (no codec),
+12. streamed: the stream (``MeshFlowStabilizer._stream``) on the
+   300-frame 640x360 clip through an array-backed clip and a capturing
+   writer (no codec),
    at CHUNK 64 and 16, its frames torch.equal and its metrics equal to
    ``_stabilize_frames`` at the same CHUNK, the kernels' launch counts,
    warm wall time and a pass with its stages timed;
@@ -1093,9 +1094,9 @@ def in_memory_passes(name, device, frames_np, config, pan, route=None, eager_pea
             check(all(torch.equal(a, b) for a, b in zip(got, out)),
                   f"{name}: the eager pass differs from the graphed one")
             del got
-    stages = {stage: round(sec, 4) for stage, sec in stab.last_timer.stages}
+    stages = stage_seconds(stab.last_timer)
     crop, metrics, mean_dx = check_output(name, stab, out, num_frames, h, w, pan, device)
-    lk, bmap = stream_launch_counts(config, h, w, num_frames, stab.CHUNK, maps_a_block=1)
+    lk, bmap = stream_launch_counts(config, h, w, num_frames, stab.CHUNK)
     kernel, key = ("C", "lk_band") if route == "band" else ("A", "lk_level")
     check(launches == {"lk_level": 0, "lk_band": 0, key: lk, "backward_map": bmap},
           f"{name}: launches {launches}, expected kernel {kernel} {lk}, kernel B {bmap}")
@@ -1278,17 +1279,24 @@ def phase_native_io():
     return ok
 
 
-def stream_launch_counts(config, h, w, num_frames, chunk, maps_a_block=2):
-    """(LK launches, backward-map calls) of a streamed run: pass 1's
-    windows and pass 2's metric blocks at the LK's levels, and two maps a
-    block (the crop scan, then pass 2); with maps_a_block=1 those of the
-    in-memory route (motion and metric blocks, one map a render block)."""
+def stage_seconds(timer) -> dict:
+    """{stage: seconds} of a stage timer, each stage's runs summed."""
+    out = {}
+    for name, sec in timer.stages:
+        out[name] = out.get(name, 0.0) + sec
+    return {name: round(sec, 4) for name, sec in out.items()}
+
+
+def stream_launch_counts(config, h, w, num_frames, chunk):
+    """(LK launches, backward-map calls) of a clip through the pipeline,
+    from either driver: pass 1's windows and pass 2's metric blocks at the
+    LK's levels, and two maps a block (the crop scan, then pass 2)."""
     import math
 
     levels = config.lk_max_level(*config.track_shape(h, w)) + 1
     blocks = math.ceil((num_frames - 1) / (chunk - 1)), math.ceil(num_frames / chunk)
     lk = levels * (blocks[0] + (blocks[1] if config.compute_metrics else 0))
-    return lk, maps_a_block * blocks[1]
+    return lk, 2 * blocks[1]
 
 
 def run_streamed(stab, clip, device, variant=0, timer=None, checkpoint_dir=None):
@@ -1304,11 +1312,9 @@ def run_streamed(stab, clip, device, variant=0, timer=None, checkpoint_dir=None)
     reset_launches()
     torch.cuda.synchronize()
     start = time.perf_counter()
-    metrics = streaming.stabilize_streamed(
-        clip, writer, variant, stab.config, stab._key,
-        timer or StageTimer(enabled=False, device=device), device, chunk=stab.CHUNK,
-        checkpoint_dir=checkpoint_dir, runner=stab._runner,
-    )
+    stab.checkpoint_dir = checkpoint_dir
+    metrics = stab._stream(clip, writer, variant,
+                           timer or StageTimer(enabled=False, device=device))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     return writer.frames(), metrics, seconds, read_launches()
@@ -1369,8 +1375,8 @@ def check_streamed(name, got, ref):
 
 
 def phase_streamed(device, num_frames=300, h=360, w=640, pan=120):
-    """``streaming.stabilize_streamed`` on the 640x360 clip through an
-    array-backed clip and a capturing writer (no codec), at CHUNK 64 and
+    """The stream (``MeshFlowStabilizer._stream``) on the 640x360 clip
+    through an array-backed clip and a capturing writer (no codec), at CHUNK 64 and
     16, each against ``_stabilize_frames`` at the same CHUNK: frames
     torch.equal, metrics equal, the kernels' launch counts; at CHUNK 64 a
     warm pass and a pass with its stages timed."""
@@ -1399,7 +1405,7 @@ def phase_streamed(device, num_frames=300, h=360, w=640, pan=120):
             warm = run_streamed(stab, clip, device)
             timer = StageTimer(enabled=True, device=device)
             run_streamed(stab, clip, device, timer=timer)
-            stages = {name: round(sec, 4) for name, sec in timer.stages}
+            stages = stage_seconds(timer)
             line += (f"; warm {warm[2]:.3f} s ({num_frames / warm[2]:.2f} fps); stages of a "
                      f"third pass (s, a synchronize at each stage end) {stages}")
             out = {"launches": launches, "first_s": got[2], "warm_s": warm[2],
@@ -1461,8 +1467,8 @@ def torch_frames(frames):
 def phase_memory(device, num_frames=300, h=1080, w=1920, pan=360):
     """Peak device memory at 1920x1080 x 300 frames, d=3, kernel C: the
     in-memory route (the clip uploaded, then ``_stabilize_frames``) against
-    ``stabilize_streamed`` with MESHFLOW_HBM_FRAME_BUDGET_GB=0; equal
-    outputs."""
+    the stream (``MeshFlowStabilizer._stream``) with
+    MESHFLOW_HBM_FRAME_BUDGET_GB=0; equal outputs."""
     import torch
 
     from meshflow_tpu_torch import streaming
@@ -1476,7 +1482,7 @@ def phase_memory(device, num_frames=300, h=1080, w=1920, pan=360):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        pass1 = streaming._pass1
+        pass1 = MeshFlowStabilizer._pass1
 
         def pass1_peak(*args):  # the peak of pass 1, then of the rest apart
             out = pass1(*args)
@@ -1486,11 +1492,11 @@ def phase_memory(device, num_frames=300, h=1080, w=1920, pan=360):
             return out
 
         os.environ["MESHFLOW_HBM_FRAME_BUDGET_GB"] = "0"
-        streaming._pass1 = pass1_peak
+        MeshFlowStabilizer._pass1 = pass1_peak
         try:
             got = run_streamed(stab, streaming.ArrayClip(frames), device)
         finally:
-            streaming._pass1 = pass1
+            MeshFlowStabilizer._pass1 = pass1
             del os.environ["MESHFLOW_HBM_FRAME_BUDGET_GB"]
         peaks["streamed solve to pass 2"] = torch.cuda.max_memory_allocated() - base
         peaks["streamed"] = max(peaks["streamed pass 1"], peaks["streamed solve to pass 2"])
@@ -1538,7 +1544,7 @@ def phase_file(device, native_ok, num_frames=300, h=360, w=640, pan=120, fps=30.
         start = time.perf_counter()
         metrics = stab.stabilize(src, dst, 0)
         wall = time.perf_counter() - start
-        stages = {name: round(sec, 4) for name, sec in stab.last_timer.stages}
+        stages = stage_seconds(stab.last_timer)
         with native.NativeReader(dst) as reader:
             count = 0
             while True:
@@ -2194,7 +2200,7 @@ class pass2_sources:
         from meshflow_tpu_torch import streaming
 
         self.blocks, self.resident = [], 0
-        self.original = original = streaming._Pipeline.host_frames
+        self.original = original = streaming.HostFrames.host_frames
 
         def host_frames(pipe, start, n):
             self.resident = pipe.res_end
@@ -2205,13 +2211,13 @@ class pass2_sources:
             self.blocks.append((start, n, source))
             return original(pipe, start, n)
 
-        streaming._Pipeline.host_frames = host_frames
+        streaming.HostFrames.host_frames = host_frames
         return self
 
     def __exit__(self, *exc):
         from meshflow_tpu_torch import streaming
 
-        streaming._Pipeline.host_frames = self.original
+        streaming.HostFrames.host_frames = self.original
 
     def sources(self):
         return {source for _, _, source in self.blocks}
@@ -2337,8 +2343,8 @@ def phase_geometry_kernels(device, bmap_cases=GEOMETRY_BMAP_CASES, size=(2160, 3
 
 
 def streamed_against(name, run, frames_np, device, **env):
-    """``stabilize_streamed`` of `frames_np` (an array clip into a capturing
-    writer) under the environment `env`, against the in-memory `run`
+    """The stream (``MeshFlowStabilizer._stream``) of `frames_np` (an array
+    clip into a capturing writer) under the environment `env`, against the in-memory `run`
     (``in_memory_passes``, its output on the host as run["ref"]): frames
     torch.equal, metrics equal, launches as reckoned; which branch served
     each block of pass 2, the peak device memory and the process's peak
@@ -2393,7 +2399,7 @@ def serving_against(name, device, frames, config, ref, ref_walls):
     check(math.isnan(scores[0]) and math.isnan(scores[1]),
           f"{name} serving: area scores {scores[:2]} are not NaN")
     check(scores[2] == float(ref[3]), f"{name} serving: stability {scores[2]} != {ref[3]}")
-    lk, bmap = stream_launch_counts(stab.config, h, w, num_frames, stab.CHUNK, maps_a_block=1)
+    lk, bmap = stream_launch_counts(stab.config, h, w, num_frames, stab.CHUNK)
     check(launches == {"lk_level": lk, "lk_band": 0, "backward_map": bmap},
           f"{name} serving: launches {launches}, expected kernel A {lk}, kernel B {bmap}")
     print(f"{name} serving (compute_metrics=False): {num_frames} frames {w}x{h}: first "
@@ -2531,20 +2537,24 @@ def trace_launches(stab, frames, device, route):
         with env_set(MESHFLOW_TRACE_DIR=tmp):
             stab._stabilize_frames(frames, 0, StageTimer(enabled=True, device=device))
         counted = counted_launches()
-        stages = {}
-        for stage, _ in stab.last_timer.stages:
-            with open(Path(tmp) / (stage.replace(" ", "_") + ".json")) as fh:
+        stages, runs = {}, {}
+        for stage, _ in stab.last_timer.stages:  # a trace a run: <stage>[.<k>].json
+            k = runs[stage] = runs.get(stage, -1) + 1
+            name = stage.replace(" ", "_") + (f".{k}" if k else "")
+            with open(Path(tmp) / (name + ".json")) as fh:
                 events = json.load(fh)["traceEvents"]
             names = [e.get("name") for e in events
                      if e.get("cat") in ("cuda_runtime", "cuda_driver")]
             kernels = [e.get("name") for e in events if e.get("cat") == "kernel"]
-            stages[stage] = {
-                "kernel_launches": sum(n in KERNEL_CALLS for n in names),
-                "graph_launches": names.count("cudaGraphLaunch"),
-                "copies": names.count("cudaMemcpyAsync") + names.count("cudaMemsetAsync"),
-                "kernels": len(kernels),
-                "named": named_kernels(kernels),
-            }
+            row = stages.setdefault(stage, {"kernel_launches": 0, "graph_launches": 0,
+                                            "copies": 0, "kernels": 0,
+                                            "named": dict.fromkeys(KERNEL_NAMES, 0)})
+            row["kernel_launches"] += sum(n in KERNEL_CALLS for n in names)
+            row["graph_launches"] += names.count("cudaGraphLaunch")
+            row["copies"] += names.count("cudaMemcpyAsync") + names.count("cudaMemsetAsync")
+            row["kernels"] += len(kernels)
+            for w, n in named_kernels(kernels).items():
+                row["named"][w] += n
             del events, names, kernels
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2651,7 +2661,7 @@ def phase_graphs(device, main, run_1080p, online, streamed, runs=2, online_frame
             _, wall = timed_parallel(lambda: stab._stabilize_frames(frames, 0, timer))
             row = rows[route]
             row["warm_s"].append(wall)
-            row["stages"] = {stage: round(sec, 4) for stage, sec in timer.stages}
+            row["stages"] = stage_seconds(timer)
             row["peak_allocated_gib"].append(
                 (torch.cuda.max_memory_allocated() - base) / (1 << 30))
             row["peak_reserved_gib"].append(torch.cuda.max_memory_reserved() / (1 << 30))

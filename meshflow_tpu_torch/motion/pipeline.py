@@ -29,7 +29,10 @@ from meshflow_tpu_torch.motion.features import match_from_tracks
 from meshflow_tpu_torch.motion.propagate import vertex_velocities
 from meshflow_tpu_torch.utils import grid, graphs, prng
 
-_DETECT_PIXEL_BUDGET = 32 * 640 * 360  # pixels per FAST call
+# Pixels a FAST call: its working set (~380 bytes a pixel, 1.4 GB at 16
+# frames of 640x360) is the largest transient of a pass-1 window, and the
+# device memory it leaves cached is what the window's tracking shares.
+_DETECT_PIXEL_BUDGET = 16 * 640 * 360
 # Pairs matched and propagated together: bounds the (pairs, V, S*K)
 # ellipse-median tensors to ~2 GB at the default geometry.
 PAIR_BATCH = 16
@@ -242,32 +245,3 @@ def integrate_velocities(velocities, homographies, pair_ok) -> MotionEstimate:
         homographies=torch.cat([homographies, eye]),
         pair_ok=pair_ok,
     )
-
-
-def estimate_motion_chunked(
-    keypoints: Keypoints,
-    frames_bgr: torch.Tensor,
-    key: torch.Tensor,
-    config: MeshFlowConfig,
-    frame_height: int,
-    frame_width: int,
-    chunk_pairs: int = 128,
-    runner: graphs.GraphRunner | None = None,
-) -> MotionEstimate:
-    """Motion of a whole clip in blocks of `chunk_pairs` pairs (the last
-    block ragged), so the working set stays that of one block; the match
-    batches run through `runner` (``pair_velocities``)."""
-    num_frames = frames_bgr.shape[0]
-    parts = []
-    for start in range(0, num_frames - 1, chunk_pairs):
-        stop = min(start + chunk_pairs + 1, num_frames)
-        kps = Keypoints(*(a[start:stop] for a in keypoints))
-        parts.append(
-            pair_velocities(
-                kps, frames_bgr[start:stop], key, start, config,
-                frame_height, frame_width, runner,
-            )
-        )
-    velocities, homographies, pair_ok = (torch.cat(p) for p in zip(*parts))
-    return integrate_velocities(velocities, homographies, pair_ok)
-

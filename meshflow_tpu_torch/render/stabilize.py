@@ -369,10 +369,13 @@ def render_stabilized(
     C+1, 2).  Returns (stabilized (F, H, W, C) uint8, crop (4,) [left, top,
     right, bottom]).  The backward maps come from
     ``kernels/bmap_cuda.backward_map``: kernel B for CUDA tensors, the
-    plain version for CPU tensors.
+    plain version for CPU tensors.  Spans: ``render.maps``,
+    ``render.warp`` and ``render.edges``.
     """
-    stabilized, _, crop = render_block(frames, None, unstab_disp, stab_disp, unstab_grid,
+    bmap, stabilized, _ = render_block(frames, None, unstab_disp, stab_disp, unstab_grid,
                                        config, frame_height, frame_width)
+    with span("render.edges"):
+        crop = block_crop(bmap, frame_height, frame_width)
     return stabilized, crop
 
 
@@ -386,20 +389,18 @@ def render_block(
     frame_height: int,
     frame_width: int,
 ):
-    """`render_stabilized` of a block, with its track planes `track` (F, H,
-    W, 1) warped through the same backward maps when given (the metric
-    pass's gray re-render).  Returns (stabilized frames, stabilized track
-    planes or None, crop (4,)).  Spans: ``render.maps``, ``render.warp``
-    and ``render.edges``."""
+    """Warp a block of frames through its backward maps, and its track
+    planes `track` (F, H, W, 1) through the same maps when given (the
+    metric pass's gray re-render).  Returns (the backward maps, stabilized
+    frames, stabilized track planes or None).  Spans: ``render.maps`` and
+    ``render.warp``."""
     with span("render.maps"):
         bmap = stabilized_maps(unstab_disp, stab_disp, unstab_grid, config, frame_height,
                                frame_width)
     with span("render.warp"):
         stabilized_track = None if track is None else warp_block(track, bmap, config)
         stabilized = warp_block(frames, bmap, config)
-    with span("render.edges"):
-        crop = block_crop(bmap, frame_height, frame_width)
-    return stabilized, stabilized_track, crop
+    return bmap, stabilized, stabilized_track
 
 
 def stabilized_maps(

@@ -1,52 +1,31 @@
-"""Two-pass streaming pipeline, O(chunk) pixel residency at any clip
-length: the port of ``meshflow_tpu/streaming.py``.
+"""The host side of the clip pipeline (``api.MeshFlowStabilizer``): the
+port of ``meshflow_tpu/streaming.py``'s readers, writers, budgets and
+host threads, O(chunk) pixel residency at any clip length.
 
-Only displacement fields, homographies and keypoints (O(F) small tensors)
-persist across the clip; pixels flow through in blocks of CHUNK frames,
-twice.  The stages:
+``stabilize`` runs the pipeline over a clip on the host: a path (decoded
+by ``ChunkReader``: the native library when it loads, else cv2) or any
+object with ``info()``, ``reader()`` and ``path`` (``ArrayClip``: frames
+in memory, no codec), into a path (``StreamWriter``) or any object with
+``write(frames)`` and ``close()`` (``CaptureWriter``).  ``HostFrames`` is
+that clip and output as the pipeline's frame source and sink.  Pixels
+flow through in blocks of CHUNK frames, twice:
 
-pass 1 (decode -> device):  stride-(CHUNK-1) windows with a one-frame halo
-    feed detection and the pair scan (LK through kernel A, or C under
-    MESHFLOW_LK_FETCH=band; RANSAC; propagation).  Windows, RANSAC keys and
-    the integration of the velocities are those of the in-memory route
-    (``api.MeshFlowStabilizer._stabilize_frames``), so the motion is the
-    same.  A checkpoint (``checkpoint.py``) saves pass 1's outputs; a rerun
-    that finds it starts at the solve.
-solve (device):  adaptive weights and banded Jacobi over the (F, V, 2)
-    state, as in-memory.
-crop scan (device):  the global crop from the displacement fields alone:
-    per CHUNK block, the backward maps (kernel B) and their crop edges,
-    intersected over the blocks as in-memory; no pixels are needed.  (The
-    JAX package scans on the host with its native renderer, which the
-    port leaves behind.)
-pass 2 (host -> device -> host):  per CHUNK block, the frames come from
-    the device-resident prefix (MESHFLOW_HBM_FRAME_BUDGET_GB), else from
-    pass 1's host cache (MESHFLOW_HOST_FRAME_CACHE_GB), else from a second
-    decode; the block is warped on the device (kernel B again), cropped and
-    stretched with the global crop, scored by the metric pass (none in
-    serving mode; gray planes at d=1 warped through the block's maps, as
-    in-memory), and its cropped BGR goes back to the host and on to the
-    encoder.  Under track_planes="gray" the blocks stay BGR on the device
-    and the trackers take their gray planes, derived there.
+pass 1:  each window's new frames are decoded and uploaded; the first
+    MESHFLOW_HBM_FRAME_BUDGET_GB of them stay on the device (the resident
+    prefix), and all of them in host memory when the clip fits
+    MESHFLOW_HOST_FRAME_CACHE_GB (the host cache).  MESHFLOW_INFLIGHT
+    bounds how many windows the host queues ahead of the card.
+pass 2:  each block comes from the resident prefix, else from the host
+    cache, else from a second decode; each cropped block goes back to the
+    host and on to the encoder.  MESHFLOW_HOST_PIPELINE=serial|threaded|auto:
+    threaded puts decode and encode on threads of their own, beside the
+    main thread that drives the device, with bounded queues between them;
+    auto is threaded on a host with two or more cores.  A worker's
+    exception is raised in the caller, never left to hang the pipeline.
 
-Pass 1 is the span ``stream.pass1`` and the solve, crop scan and pass 2
-the span ``stream.pass2`` (``utils/profiling.py``), under the
-``stabilize`` request of ``MeshFlowStabilizer.stabilize``.
-
-Every block of pass 2 is the in-memory route's block, so the output
-frames and the three metrics equal ``_stabilize_frames``' bit for bit.
-MESHFLOW_INFLIGHT bounds how many pass-1 windows the host queues ahead of
-the card.  MESHFLOW_HOST_PIPELINE=serial|threaded|auto: threaded puts
-decode and encode on threads of their own, beside the main thread that
-drives the device, with bounded queues between them; auto is threaded on
-a host with two or more cores.  A worker's exception is raised in the
-caller, never left to hang the pipeline.
-
-The clip is a path (decoded by ``ChunkReader``: the native library when it
-loads, else cv2) or any object with ``info()`` and ``reader()``
-(``ArrayClip``: frames in memory, no codec).  The output is a path
-(``StreamWriter``) or any object with ``write(frames)`` and ``close()``
-(``CaptureWriter``).
+Decode and encode are host work, timed into the stage timer with
+``StageTimer.add`` from whichever thread runs them; uploads and copies
+back are stages of the main thread (``host->device``, ``device->host``).
 """
 
 from __future__ import annotations
@@ -56,39 +35,13 @@ import os
 import queue
 import threading
 import time
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
-from meshflow_tpu_torch import checkpoint as ckpt_mod
-from meshflow_tpu_torch.config import MeshFlowConfig
 from meshflow_tpu_torch.io import native as native_io
 from meshflow_tpu_torch.io import video as video_io
-from meshflow_tpu_torch.kernels.fast import Keypoints
-from meshflow_tpu_torch.metrics.quality import cropping_and_distortion, stability_score
-from meshflow_tpu_torch.motion import trackscale
-from meshflow_tpu_torch.motion.pipeline import (
-    MotionEstimate,
-    integrate_velocities,
-    pair_velocities,
-    prepare_frames,
-)
-from meshflow_tpu_torch.render.stabilize import (
-    block_crop,
-    crop_frames,
-    intersect_crops,
-    render_block,
-    stabilized_maps,
-)
-from meshflow_tpu_torch.solver.jacobi import jacobi_smooth
-from meshflow_tpu_torch.solver.weights import adaptive_weights
-from meshflow_tpu_torch.utils import graphs, grid, prng, profiling
-
-STAGES = (
-    "decode", "host->device", "detect+motion", "motion (sync)", "solver", "crop scan",
-    "warp+crop", "metrics", "device->host", "encode",
-)
 
 
 class ChunkReader:
@@ -255,31 +208,6 @@ def resident_slice(parts, start: int, n: int):
     return np.concatenate(out) if isinstance(out[0], np.ndarray) else torch.cat(out)
 
 
-class _Acc:
-    """Per-stage wall-clock buckets, reported into a StageTimer.  With the
-    timer enabled on a CUDA device, each timed section ends with a
-    synchronize, so a bucket holds its stage's device time."""
-
-    def __init__(self, timer, device: torch.device):
-        self.timer = timer
-        self.device = device
-        self.sync = timer.enabled and device.type == "cuda"
-        self.buckets: dict = {}
-        self._lock = threading.Lock()  # decode and encode threads add too
-
-    def add(self, name: str, start: float, device_work: bool = True) -> None:
-        if self.sync and device_work:
-            torch.cuda.synchronize(self.device)
-        seconds = time.perf_counter() - start
-        with self._lock:
-            self.buckets[name] = self.buckets.get(name, 0.0) + seconds
-
-    def flush(self) -> None:
-        for name in STAGES:
-            if name in self.buckets:
-                self.timer.stages.append((name, self.buckets[name]))
-
-
 def _budget(name: str, default_gb: float) -> int:
     return int(float(os.environ.get(name, default_gb)) * (1 << 30))
 
@@ -301,162 +229,94 @@ def _threaded() -> bool:
     return mode == "threaded" or (mode == "auto" and (os.cpu_count() or 1) >= 2)
 
 
-class _Pass1(NamedTuple):
-    motion: MotionEstimate
-    keypoints: Keypoints
-    frame_parts: list  # (start, device frames): the resident prefix
-    host_cache: Optional[list]  # (start, numpy frames) covering the clip, or None
+class HostFrames:
+    """A clip and an output on the host as the pipeline's frame source and
+    sink (``api.DeviceFrames`` is the device's): ``window`` gives pass 1
+    its windows, ``blocks`` gives pass 2 its blocks on the device, ``put``
+    sends each cropped block to the encoder, and ``finish`` or ``abort``
+    ends the run.  Decode and encode run serial or on threads of their own
+    (``_threaded``)."""
 
-
-def stabilize_streamed(
-    clip,
-    output,
-    adaptive_weights_definition: int,
-    config: MeshFlowConfig,
-    key: torch.Tensor,
-    timer,
-    device,
-    chunk: int = 64,
-    checkpoint_dir: Optional[str] = None,
-    runner: Optional[graphs.GraphRunner] = None,
-):
-    """Stream `clip` (a path or an ``ArrayClip``) to `output` (a path or a
-    writer); returns (cropping_ratio, distortion_score, stability_score).
-
-    checkpoint_dir persists pass 1's motion state: a rerun of the same
-    clip and config, also under another variant, resumes at the solve.
-    runner: the motion and metric batches run through it
-    (``MeshFlowStabilizer.stabilize`` passes its own; None runs them
-    directly).
-    """
-    device = torch.device(device)
-    if isinstance(clip, (str, os.PathLike)):
-        clip = FileClip(clip)
-    info = clip.info()
-    num_frames = info.num_frames
-    chunk = min(chunk, num_frames) if num_frames >= 2 else chunk
-    acc = _Acc(timer, device)
-
-    ckpt_path, loaded = None, None
-    if checkpoint_dir:
-        if clip.path is None:
-            raise ValueError("checkpoint_dir needs a clip with a path")
-        ckpt_path = ckpt_mod.cache_path(
-            checkpoint_dir, clip.path, config, int(key[-1]), device
-        )
-        loaded = ckpt_mod.load_motion(ckpt_path)
-        if loaded is not None and loaded.displacements.shape[0] != num_frames:
-            loaded = None  # another clip length under the same key: recompute
-
-    if loaded is not None:
-        def dev(a):
-            return torch.from_numpy(a).to(device)
-
-        state = _Pass1(
-            MotionEstimate(dev(loaded.displacements), dev(loaded.homographies),
-                           dev(loaded.pair_ok)),
-            Keypoints(dev(loaded.kp_positions), dev(loaded.kp_scores), dev(loaded.kp_valid)),
-            [], None,
-        )
-    else:
-        with profiling.span("stream.pass1", device=device):
-            state = _pass1(clip, info, config, key, device, chunk, acc, runner)
-        if ckpt_path:
-            motion, kps = state.motion, state.keypoints
-            ckpt_mod.save_motion(ckpt_path, ckpt_mod.MotionCheckpoint(
-                *(a.cpu().numpy() for a in (motion.displacements, motion.homographies,
-                                            motion.pair_ok, kps.positions, kps.scores,
-                                            kps.valid))
-            ))
-    with profiling.span("stream.pass2", device=device):
-        result = _solve_and_render(clip, output, info, adaptive_weights_definition, config,
-                                   key, device, chunk, acc, state, runner)
-    acc.flush()
-    return result
-
-
-def _pass1(clip, info, config, key, device, chunk, acc, runner=None) -> _Pass1:
-    """Decode, detect and track the clip window by window."""
-    h, w = info.height, info.width
-    d_track = config.resolve_track_downscale(h, w)
-    th, tw = config.track_shape(h, w)
-    hbm_budget = _budget("MESHFLOW_HBM_FRAME_BUDGET_GB", 4)
-    clip_bytes = info.num_frames * h * w * 3
-    host_cache = [] if 0 < clip_bytes <= _host_cache_budget() else None
-    max_inflight = int(os.environ.get("MESHFLOW_INFLIGHT", "2"))
-    key_motion = prng.fold_in(key, 1)
-    reader = clip.reader()
-    frame_parts, kept = [], 0
-    kps_parts, vel_parts, homo_parts, ok_parts = [], [], [], []
-    halo = None  # (track planes, keypoints) of the last frame of the last window
-    read, inflight = 0, collections.deque()
-    while True:
-        t0 = time.perf_counter()
-        batch = reader.read(chunk if halo is None else chunk - 1)
-        acc.add("decode", t0, device_work=False)
-        if batch.shape[0] == 0:
-            break
-        n = batch.shape[0]
-        if host_cache is not None:
-            host_cache.append((read, batch))
-        t0 = time.perf_counter()
-        frames = torch.from_numpy(batch).to(device)
-        acc.add("host->device", t0)
-
-        t0 = time.perf_counter()
-        track = trackscale.to_track_planes_dev(frames, config)
-        kps, _ = prepare_frames(track, config)
-        kps_parts.append(kps)
-        if hbm_budget > 0 and kept < hbm_budget:
-            frame_parts.append((read, frames))
-            kept += frames.numel()
-        if halo is not None:
-            track = torch.cat([halo[0], track])
-            kps = Keypoints(*(torch.cat(p) for p in zip(halo[1], kps)))
-        if track.shape[0] >= 2:
-            vel, homo, ok = pair_velocities(kps, track, key_motion, read - 1 if halo else 0,
-                                            config, th, tw, runner)
-            vel_parts.append(vel)
-            homo_parts.append(homo)
-            ok_parts.append(ok)
-        # copies, so that the window's tensors are freed with it
-        halo = (track[-1:].clone(), Keypoints(*(a[-1:].clone() for a in kps)))
-        read += n
-        if device.type == "cuda":
-            inflight.append(torch.cuda.Event())
-            inflight[-1].record(torch.cuda.current_stream(device))
-            if len(inflight) > max_inflight:
-                inflight.popleft().synchronize()
-        acc.add("detect+motion", t0)
-    reader.close(check=True)
-
-    t0 = time.perf_counter()
-    motion = integrate_velocities(torch.cat(vel_parts), torch.cat(homo_parts),
-                                  torch.cat(ok_parts))
-    if d_track > 1:
-        sx, sy = trackscale.scale_factors(h, w, config)
-        motion = motion._replace(
-            displacements=trackscale.scale_velocities(motion.displacements, sx, sy),
-            homographies=trackscale.conjugate_homographies(motion.homographies, sx, sy),
-        )
-    keypoints = Keypoints(*(torch.cat(p) for p in zip(*kps_parts)))
-    acc.add("motion (sync)", t0)
-    return _Pass1(motion, keypoints, frame_parts, host_cache)
-
-
-class _Pipeline:
-    """The host side of pass 2: where each block's frames come from, and
-    the encoder, serial or on threads of their own (``_threaded``)."""
-
-    def __init__(self, clip, writer, chunk, num_frames, res_end, host_cache, acc):
-        self.clip, self.writer, self.chunk = clip, writer, chunk
-        self.num_frames, self.res_end, self.host_cache, self.acc = (
-            num_frames, res_end, host_cache, acc)
+    def __init__(self, clip, output, device, timer):
+        self.clip, self.output, self.timer = clip, output, timer
+        self.device = torch.device(device)
+        self.info = clip.info()
+        self.num_frames, self.height, self.width = (
+            self.info.num_frames, self.info.height, self.info.width)
+        self.parts, self.kept = [], 0  # the resident prefix: (start, device frames)
+        self.host_cache = None  # (start, numpy frames) covering the clip, or None
         self.reader, self.pos = None, 0
+        self.last, self.inflight = None, collections.deque()
+        self.writer, self.chunk, self.res_end = None, 0, 0
         self.errors, self.cancel = [], threading.Event()
         self.threads = []
         self.q_dec: queue.Queue = queue.Queue(maxsize=2)
         self.q_enc: queue.Queue = queue.Queue(maxsize=2)
+
+    # -- pass 1 ---------------------------------------------------------------
+    def window(self, start: int, stop: int) -> Optional[torch.Tensor]:
+        """Frames [start, stop) on the device (fewer at the clip's end), or
+        None when no frame follows the halo: frame `start` is the last one
+        of the previous window unless `start` is 0.  The new frames are
+        decoded and uploaded behind the halo; the clip's length is checked
+        once the reader runs dry."""
+        if self.reader is None:
+            self.reader = self.clip.reader()
+            clip_bytes = self.num_frames * self.height * self.width * 3
+            self.host_cache = [] if 0 < clip_bytes <= _host_cache_budget() else None
+        elif self.device.type == "cuda":  # the previous window's work is queued
+            self.inflight.append(torch.cuda.Event())
+            self.inflight[-1].record(torch.cuda.current_stream(self.device))
+            if len(self.inflight) > int(os.environ.get("MESHFLOW_INFLIGHT", "2")):
+                self.inflight.popleft().synchronize()
+        t0 = time.perf_counter()
+        batch = self.reader.read(stop - self.pos)
+        self.timer.add("decode", time.perf_counter() - t0)
+        if batch.shape[0] == 0:
+            self._close_reader(check=True)
+            return None
+        if self.host_cache is not None:
+            self.host_cache.append((self.pos, batch))
+        halo = int(start < self.pos)
+        with self.timer.stage("host->device"):
+            frames = torch.empty((halo + len(batch),) + batch.shape[1:], dtype=torch.uint8,
+                                 device=self.device)
+            if halo:
+                frames[0] = self.last
+            frames[halo:].copy_(torch.from_numpy(batch))
+        if self.kept < _budget("MESHFLOW_HBM_FRAME_BUDGET_GB", 4):
+            self.parts.append((self.pos, frames[halo:]))
+            self.kept += batch.size
+        self.last = frames[-1].clone()  # a copy: the window is freed after its work
+        self.pos += len(batch)
+        return frames
+
+    # -- pass 2 ---------------------------------------------------------------
+    def blocks(self, num_frames: int, chunk: int):
+        """(start, frames on the device) of each block of `chunk` frames, in
+        order: from the resident prefix, else uploaded from the host."""
+        self.num_frames, self.chunk = num_frames, chunk
+        self.res_end, self.pos = resident_end(self.parts), 0
+        self.writer = self.output
+        if isinstance(self.output, (str, os.PathLike)):
+            self.writer = StreamWriter(str(self.output), self.width, self.height,
+                                       self.info.fps, self.info.fourcc)
+        for start, n, host in self._host_blocks():
+            if host is None:
+                yield start, resident_slice(self.parts, start, n)
+                continue
+            with self.timer.stage("host->device"):
+                frames = torch.from_numpy(host).to(self.device)
+            yield start, frames
+
+    def put(self, start: int, cropped: torch.Tensor) -> None:
+        """The cropped block at `start`, back to the host and to the encoder."""
+        with self.timer.stage("device->host"):
+            frames = cropped.cpu().numpy()
+        if not self.threads:
+            self.encode(frames)
+        elif not self._put(self.q_enc, frames):
+            raise self.errors[0]
 
     def host_frames(self, start: int, n: int) -> Optional[np.ndarray]:
         """Block [start, start + n) from the host: None when it lies in the
@@ -482,13 +342,13 @@ class _Pipeline:
                                   f"{self.pos} of {self.num_frames} (indexed from 0).")
                 self.pos += got
             frames = parts[0] if len(parts) == 1 else np.concatenate(parts)
-        self.acc.add("decode", t0, device_work=False)
+        self.timer.add("decode", time.perf_counter() - t0)
         return frames
 
     def encode(self, frames: np.ndarray) -> None:
         t0 = time.perf_counter()
         self.writer.write(frames)
-        self.acc.add("encode", t0, device_work=False)
+        self.timer.add("encode", time.perf_counter() - t0)
 
     # -- threaded: decode | main (device) | encode ---------------------------
     def _put(self, q, item) -> bool:
@@ -539,7 +399,7 @@ class _Pipeline:
             self.errors.append(e)
             self.cancel.set()
 
-    def blocks(self):
+    def _host_blocks(self):
         """(start, n, host frames or None) for every block, in order."""
         if not _threaded():
             for start in range(0, self.num_frames, self.chunk):
@@ -558,12 +418,6 @@ class _Pipeline:
         if self.errors:
             raise self.errors[0]
 
-    def put_output(self, frames: np.ndarray) -> None:
-        if not self.threads:
-            self.encode(frames)
-        elif not self._put(self.q_enc, frames):
-            raise self.errors[0]
-
     def finish(self) -> None:
         if self.threads:
             self._sentinel(self.q_enc)
@@ -574,7 +428,7 @@ class _Pipeline:
             raise self.errors[0]
         t0 = time.perf_counter()
         self.writer.close()
-        self.acc.add("encode", t0, device_work=False)
+        self.timer.add("encode", time.perf_counter() - t0)
 
     def abort(self) -> None:
         """Stop the threads and release the reader and the encoder; the
@@ -589,95 +443,13 @@ class _Pipeline:
         for t in self.threads:
             t.join(timeout=10.0)
         self._close_reader()
-        try:
-            self.writer.close()
-        except IOError:
-            pass  # the original error is the one to raise
+        if self.writer is not None:
+            try:
+                self.writer.close()
+            except IOError:
+                pass  # the original error is the one to raise
 
-    def _close_reader(self) -> None:
+    def _close_reader(self, check: bool = False) -> None:
         if self.reader is not None:
-            self.reader.close()
-            self.reader = None
-
-
-def _solve_and_render(clip, output, info, adaptive_weights_definition, config, key, device,
-                      chunk, acc, state: _Pass1, runner=None):
-    """Solve, crop scan and pass 2 (shared by fresh and resumed runs)."""
-    h, w = info.height, info.width
-    num_frames = state.motion.displacements.shape[0]  # the frames pass 1 read
-    th, tw = config.track_shape(h, w)
-    motion, keypoints = state.motion, state.keypoints
-    unstab_grid = grid.vertex_grid(config, h, w, device=device)
-
-    t0 = time.perf_counter()
-    lambdas = adaptive_weights(motion.homographies, w, h, adaptive_weights_definition)
-    stab_disp = jacobi_smooth(motion.displacements, lambdas,
-                              config.temporal_smoothing_radius,
-                              config.optimization_num_iterations)
-    acc.add("solver", t0)
-
-    t0 = time.perf_counter()
-    crop = intersect_crops([
-        block_crop(stabilized_maps(motion.displacements[s : s + chunk],
-                                   stab_disp[s : s + chunk], unstab_grid, config, h, w), h, w)
-        for s in range(0, num_frames, chunk)
-    ])
-    acc.add("crop scan", t0)
-
-    if isinstance(output, (str, os.PathLike)):
-        output = StreamWriter(str(output), w, h, info.fps, info.fourcc)
-    pipe = _Pipeline(clip, output, chunk, num_frames, resident_end(state.frame_parts),
-                     state.host_cache, acc)
-    metric_key = prng.fold_in(key, 2)
-    rerender = trackscale.metric_rerender(config, h, w)
-    ratios, distortions = [], []
-    try:
-        for start, n, host in pipe.blocks():
-            sl = slice(start, start + n)
-            t0 = time.perf_counter()
-            if host is None:
-                frames = resident_slice(state.frame_parts, start, n)
-            else:
-                frames = torch.from_numpy(host).to(device)
-            acc.add("host->device", t0)
-            t0 = time.perf_counter()
-            # the block's maps go with render_block, before the metric
-            # pass's working set
-            track = trackscale.planes_dev(frames, config) if rerender else None
-            stab, stab_t, _ = render_block(frames, track, motion.displacements[sl],
-                                           stab_disp[sl], unstab_grid, config, h, w)
-            cropped = crop_frames(stab, crop, h, w)
-            if rerender:
-                cropped_t = crop_frames(stab_t, crop, h, w)
-            del stab, stab_t
-            acc.add("warp+crop", t0)
-            if config.compute_metrics:
-                t0 = time.perf_counter()
-                if rerender:
-                    unstab_t = track
-                else:
-                    unstab_t = trackscale.to_track_planes_dev(frames, config)
-                    cropped_t = trackscale.to_track_planes_dev(cropped, config)
-                r, d = cropping_and_distortion(
-                    Keypoints(*(a[sl] for a in keypoints)), unstab_t, cropped_t,
-                    metric_key, start, config, th, tw, runner,
-                )
-                ratios.append(r)
-                distortions.append(d)
-                acc.add("metrics", t0)
-            t0 = time.perf_counter()
-            cropped_np = cropped.cpu().numpy()
-            acc.add("device->host", t0)
-            pipe.put_output(cropped_np)
-        pipe.finish()
-    except BaseException:
-        pipe.abort()
-        raise
-
-    stability = stability_score(stab_disp)
-    if config.compute_metrics:
-        cropping_ratio = torch.cat(ratios).mean()
-        distortion = torch.cat(distortions).amin()
-    else:
-        cropping_ratio = distortion = torch.tensor(float("nan"))
-    return float(cropping_ratio), float(distortion), float(stability)
+            reader, self.reader = self.reader, None
+            reader.close(check=check)

@@ -136,7 +136,12 @@ class GraphRunner:
 
     def _warm_up(self, fn, args, static, device):
         """fn eagerly on the capture's side stream, ordered after the
-        caller's stream and before its later work."""
+        caller's stream and before its later work.  The caching allocator
+        keeps the blocks a stream frees for that stream, so, as a capture
+        does, the warm-up first returns the caller's cached blocks to the
+        card: the unit's working set on the side stream would otherwise
+        stack on them (a clip's detection leaves ~2.8 GB cached at 640x360)."""
+        torch.cuda.empty_cache()
         stream, current = self._stream(device), torch.cuda.current_stream(device)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):

@@ -5,7 +5,8 @@ Enable the timing report: MESHFLOW_TIMINGS=1 (prints a per-stage table).
 An enabled timer also records the spans of the call it times, so the
 table gives each stage's device ms and host syncs beside its wall time.
 Enable device traces: MESHFLOW_TRACE_DIR=/path (one Chrome trace per
-stage, ``<stage>.json``, recorded by ``torch.profiler``).
+run of a stage, ``<stage>.json`` and ``<stage>.<k>.json`` for its k-th
+run after the first, recorded by ``torch.profiler``).
 
 PyTorch returns before the card finishes, so an enabled timer on a CUDA
 device ends every stage with ``torch.cuda.synchronize()``; a disabled
@@ -370,7 +371,9 @@ def clear() -> None:
 
 class StageTimer:
     """Collects per-stage wall times for one run.  Each stage is also a
-    span of the same name."""
+    span of the same name; a stage that runs more than once (a window, a
+    block) adds up, and threads add their host-only stages (decode,
+    encode) through ``add``."""
 
     def __init__(self, enabled: Optional[bool] = None, device=None):
         self.enabled = (
@@ -380,16 +383,21 @@ class StageTimer:
         )
         self.trace_dir = os.environ.get("MESHFLOW_TRACE_DIR")
         self.device = torch.device(device) if device is not None else torch.device("cpu")
-        self.stages: List[tuple] = []
-        self._spans: Dict[int, Span] = {}  # index in stages -> the stage's span
+        self.stages: List[tuple] = []  # (name, seconds), one entry a stage run or add
+        self._spans: Dict[str, List[Span]] = {}  # name -> the stage's spans
+        self._lock = threading.Lock()
 
     def _trace(self, name: str):
+        """A profiler over one run of the stage: ``<name>.json``, and
+        ``<name>.<k>.json`` for its k-th run after the first."""
         if not self.trace_dir:
             return contextlib.nullcontext()
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        path = os.path.join(self.trace_dir, name.replace(" ", "_") + ".json")
+        runs = sum(n == name for n, _ in self.stages)
+        base = name.replace(" ", "_") + (f".{runs}" if runs else "")
+        path = os.path.join(self.trace_dir, base + ".json")
 
         def export(prof):
             os.makedirs(self.trace_dir, exist_ok=True)
@@ -407,23 +415,35 @@ class StageTimer:
                 with uncounted():
                     torch.cuda.synchronize(self.device)
         if recorded is not None:
-            self._spans[len(self.stages)] = recorded
-        self.stages.append((name, time.perf_counter() - start))
+            self._spans.setdefault(name, []).append(recorded)
+        self.add(name, time.perf_counter() - start)
+
+    def add(self, name: str, seconds: float) -> None:
+        """Add `seconds` to stage `name` (from any thread; no span, no
+        synchronize)."""
+        with self._lock:
+            self.stages.append((name, seconds))
 
     def report(self) -> Dict[str, float]:
-        table = {name: seconds for name, seconds in self.stages}
+        """{stage: seconds}, each stage's runs summed, in the order the
+        stages first ran; printed when enabled, with each stage's device ms
+        and syncs from its spans."""
+        table: Dict[str, float] = {}
+        with self._lock:
+            for name, seconds in self.stages:
+                table[name] = table.get(name, 0.0) + seconds
         if self.enabled:
             if self._spans:
                 requests()  # resolves the device intervals of the ended requests
             total = sum(table.values())
             width = max((len(n) for n in table), default=0)
-            for i, (name, seconds) in enumerate(self.stages):
+            for name, seconds in table.items():
                 line = f"  {name:<{width}}  {seconds:7.2f}s  ({100*seconds/max(total,1e-9):4.1f}%)"
-                recorded = self._spans.get(i)
-                if recorded is not None:
-                    if recorded.device_ms is not None:
-                        line += f"  device {recorded.device_ms:9.2f} ms"
-                    line += f"  syncs {recorded.syncs}"
+                recorded = self._spans.get(name)
+                if recorded:
+                    if all(s.device_ms is not None for s in recorded):
+                        line += f"  device {sum(s.device_ms for s in recorded):9.2f} ms"
+                    line += f"  syncs {sum(s.syncs for s in recorded)}"
                 print(line)
             print(f"  {'total':<{width}}  {total:7.2f}s")
         return table

@@ -19,7 +19,7 @@ from meshflow_tpu import checkpoint as jax_ckpt
 from meshflow_tpu.config import MeshFlowConfig as JaxConfig
 from meshflow_tpu.motion import pipeline as jax_pipeline
 
-from meshflow_tpu_torch import checkpoint as ckpt, cli, streaming
+from meshflow_tpu_torch import checkpoint as ckpt, cli
 from meshflow_tpu_torch.api import MeshFlowStabilizer
 from meshflow_tpu_torch.config import MeshFlowConfig
 from test_torch_slice import _clip
@@ -43,7 +43,7 @@ def _no_pass1(monkeypatch):
     def boom(*args, **kwargs):
         raise AssertionError("pass 1 ran despite the checkpoint")
 
-    monkeypatch.setattr(streaming, "_pass1", boom)
+    monkeypatch.setattr(MeshFlowStabilizer, "_pass1", boom)
 
 
 def test_resumed_run_equals_fresh(fresh, monkeypatch):
@@ -115,8 +115,8 @@ def test_checkpoint_of_another_length_is_ignored(fresh, tmp_path, monkeypatch):
     good = ckpt.load_motion(os.path.join(ckpt_dir, os.listdir(ckpt_dir)[0]))
     ckpt.save_motion(target, ckpt.MotionCheckpoint(*(a[:-1] for a in good)))
     runs = []
-    pass1 = streaming._pass1
-    monkeypatch.setattr(streaming, "_pass1", lambda *a: runs.append(1) or pass1(*a))
+    pass1 = MeshFlowStabilizer._pass1
+    monkeypatch.setattr(MeshFlowStabilizer, "_pass1", lambda *a: runs.append(1) or pass1(*a))
     got = _streamed(stab, path)
     assert runs == [1]
     np.testing.assert_array_equal(got[0], frames)
@@ -146,8 +146,8 @@ def test_checkpoint_of_an_earlier_revision_misses(fresh, tmp_path, monkeypatch):
     good = ckpt.load_motion(os.path.join(ckpt_dir, os.listdir(ckpt_dir)[0]))
     ckpt.save_motion(old["cpu"], good)
     runs = []
-    pass1 = streaming._pass1
-    monkeypatch.setattr(streaming, "_pass1", lambda *a: runs.append(1) or pass1(*a))
+    pass1 = MeshFlowStabilizer._pass1
+    monkeypatch.setattr(MeshFlowStabilizer, "_pass1", lambda *a: runs.append(1) or pass1(*a))
     got = _streamed(stab, path)
     assert runs == [1]
     np.testing.assert_array_equal(got[0], frames)

@@ -602,9 +602,8 @@ def test_streamed_matches_in_memory_on_card():
         os.environ["MESHFLOW_HBM_FRAME_BUDGET_GB"] = budget
         try:
             writer = streaming.CaptureWriter()
-            got = streaming.stabilize_streamed(
-                streaming.ArrayClip(frames), writer, 0, config, stab._key,
-                StageTimer(enabled=False), dev, chunk=stab.CHUNK)
+            got = stab._stream(streaming.ArrayClip(frames), writer, 0,
+                               StageTimer(enabled=False, device=dev))
         finally:
             del os.environ["MESHFLOW_HBM_FRAME_BUDGET_GB"]
         assert torch.equal(torch.from_numpy(writer.frames()), cropped.cpu()), budget

@@ -162,9 +162,7 @@ def test_gray_streamed_equals_in_memory():
     stab.CHUNK = 4
     cropped, *metrics = stab._stabilize_frames(torch.from_numpy(frames), 0)
     writer = streaming.CaptureWriter()
-    got = streaming.stabilize_streamed(
-        streaming.ArrayClip(frames), writer, 0, stab.config, stab._key,
-        StageTimer(enabled=False), "cpu", chunk=stab.CHUNK)
+    got = stab._stream(streaming.ArrayClip(frames), writer, 0, StageTimer(enabled=False))
     assert torch.equal(torch.from_numpy(writer.frames()), cropped)
     assert got == tuple(float(m) for m in metrics)
 

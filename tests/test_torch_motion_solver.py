@@ -68,10 +68,8 @@ def motion_pair():
     jm = jpipe.estimate_motion_scanned(jk, jnp.asarray(frames), key, jc, 180, 320)
     # the port starts from JAX's keypoints, carried over as numpy arrays
     tk = interop.keypoints_from_numpy(*(np.asarray(a) for a in jk))
-    tm = tpipe.estimate_motion_chunked(
-        tk, torch.from_numpy(frames), interop.key_from_jax(np.asarray(key)), tc,
-        180, 320, chunk_pairs=len(frames) - 1,
-    )
+    tm = tpipe.integrate_velocities(*tpipe.pair_velocities(
+        tk, torch.from_numpy(frames), interop.key_from_jax(np.asarray(key)), 0, tc, 180, 320))
     return frames, shifts, jm, tm
 
 

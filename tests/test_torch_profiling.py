@@ -12,8 +12,8 @@
 * With the recorder off, a ``_stabilize_frames`` call and ``process``
   calls record nothing, make no CUDA event and no profiler annotation, and
   never touch the sync debug mode.
-* Recorded, a clip is one request (``clip``, its stages, the render's
-  spans per block) and an online frame another (``online.frame`` and its
+* Recorded, a clip is one request (``clip``, its two passes, their
+  stages, the render's spans per block) and an online frame another (``online.frame`` and its
   parts); an enabled stage timer records the call it times; the graph
   runner, through ``test_torch_graphs.py``'s CPU stand-in, records its
   warm-ups, captures and replays by unit.
@@ -190,23 +190,30 @@ def test_off_records_nothing_and_opens_no_event_or_annotation(monkeypatch, frame
     for frame in frames[:3]:
         online.process(frame)
     assert profiling.requests() == [] and modes == []
-    assert [name for name, _ in stab.last_timer.stages] == [
-        "detect", "motion", "solver", "warp+crop", "metrics"]
+    assert [name for name, _ in stab.last_timer.stages] == [  # one window, one block
+        "detect", "motion", "motion", "solver", "warp+crop", "warp+crop", "metrics"]
 
 
 def test_a_recorded_clip_is_one_request(monkeypatch, frames):
-    monkeypatch.setattr(MeshFlowStabilizer, "CHUNK", 4)  # two render and metric blocks
+    monkeypatch.setattr(MeshFlowStabilizer, "CHUNK", 4)  # two windows, two blocks
     monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", pytest.fail)
     stab = MeshFlowStabilizer(config=MeshFlowConfig(**TINY), device="cpu")
     with profiling.recording():
         stab._stabilize_frames(torch.from_numpy(frames), 0)
     (req,) = profiling.requests()
     assert req.root.name == "clip" and req.device is None
-    stages = [s.name for s in req.spans if s.parent == 0]
-    assert stages == ["detect", "motion", "solver", "warp+crop", "metrics"]
-    render = req.named("warp+crop")[0]
-    below = [s.name for s in req.spans if s.parent == render.index]
-    assert below == ["render.maps", "render.warp", "render.edges"] * 2 + ["render.crop"] * 2
+
+    def below(span):
+        return [s.name for s in req.spans if s.parent == span.index]
+
+    assert below(req.root) == ["stream.pass1", "stream.pass2"]
+    pass1, pass2 = (req.named(name)[0] for name in ("stream.pass1", "stream.pass2"))
+    assert below(pass1) == ["detect", "motion"] * 2 + ["motion"]
+    assert below(pass2) == ["solver", "warp+crop"] + ["warp+crop", "metrics"] * 2
+    scan, *blocks = req.named("warp+crop")
+    assert below(scan) == []  # the crop scan: maps and edges, no pixels
+    for render in blocks:
+        assert below(render) == ["render.maps", "render.warp", "render.crop"]
     assert req.syncs == 0 and all(s.device_ms is None for s in req.spans)
 
 

@@ -368,8 +368,9 @@ def test_each_entry_point_launches_once_a_block_on_card():
     track = frames[..., :1].contiguous()
     before = (bmap_cuda.backward_map.launches, render_cuda.warp.launches,
               render_cuda.crop_resize.launches)
-    stab, stab_track, crop = stabilize.render_block(frames, track, torch.zeros_like(disp), disp,
+    bmap, stab, stab_track = stabilize.render_block(frames, track, torch.zeros_like(disp), disp,
                                                     unstab, config, 360, 640)
+    crop = stabilize.block_crop(bmap, 360, 640)
     stabilize.crop_frames(stab, crop, 360, 640)
     stabilize.crop_frames(stab_track, crop, 360, 640)
     after = (bmap_cuda.backward_map.launches, render_cuda.warp.launches,
@@ -389,8 +390,7 @@ def test_render_syncs_nothing_on_card():
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        stab, _, crop = stabilize.render_block(frames, None, zeros, disp, unstab, config, 360,
-                                               640)
+        stab, crop = stabilize.render_stabilized(frames, zeros, disp, unstab, config, 360, 640)
         stabilize.crop_frames(stab, crop, 360, 640)
     finally:
         torch.cuda.set_sync_debug_mode(0)

@@ -1,5 +1,7 @@
-"""PyTorch port: the two-pass streaming pipeline (``streaming.py``) against
-the port's in-memory route and against the JAX package's streamed route.
+"""PyTorch port: the clip pipeline from a clip on the host (``stabilize``'s
+streamed route, ``streaming.HostFrames``) against the same pipeline from a
+clip on the device (``_stabilize_frames``) and against the JAX package's
+streamed route.
 
 Small shapes: the TINY config with the JAX package's reduced feature and
 iteration budget for path-identity tests (``tests/test_api_e2e.py``
@@ -29,7 +31,7 @@ from meshflow_tpu.api import MeshFlowStabilizer as JaxStabilizer
 from meshflow_tpu.config import MeshFlowConfig as JaxConfig
 from meshflow_tpu.render import host as jax_host_render
 
-from meshflow_tpu_torch import streaming
+from meshflow_tpu_torch import api, streaming
 from meshflow_tpu_torch.api import MeshFlowStabilizer
 from meshflow_tpu_torch.config import MeshFlowConfig
 from meshflow_tpu_torch.io import video as video_io
@@ -70,10 +72,9 @@ def clip(tmp_path_factory):
 
 
 def _streamed(stab, source, variant=0):
+    """``stabilize``'s streamed route from `source` into a capturing writer."""
     writer = streaming.CaptureWriter()
-    metrics = streaming.stabilize_streamed(
-        source, writer, variant, stab.config, stab._key, StageTimer(enabled=False), "cpu",
-        chunk=stab.CHUNK, checkpoint_dir=stab.checkpoint_dir)
+    metrics = stab._stream(source, writer, variant, StageTimer(enabled=False))
     return writer.frames(), metrics
 
 
@@ -156,7 +157,7 @@ def test_stream_mode_routes_like_jax(clip, tmp_path, monkeypatch):
     takes the in-memory route and then the display loop, as JAX's does."""
     path, *_ = clip
     routes = []
-    monkeypatch.setattr(streaming, "stabilize_streamed",
+    monkeypatch.setattr(MeshFlowStabilizer, "_stream",
                         lambda *a, **k: routes.append("stream") or (1.0, 1.0, 0.5))
     monkeypatch.setattr(MeshFlowStabilizer, "_stabilize_frames",
                         lambda self, frames, *a: routes.append("memory") or (
@@ -202,8 +203,8 @@ def test_streamed_matches_jax_streamed(clip, monkeypatch):
     monkeypatch.setattr(jax_streaming, "StreamWriter", Capture)
     monkeypatch.setattr(jax_host_render, "crop_edges_host",
                         lambda *a: jax_crops.append(crop_edges_host(*a)) or jax_crops[-1])
-    intersect = streaming.intersect_crops
-    monkeypatch.setattr(streaming, "intersect_crops",
+    intersect = api.intersect_crops
+    monkeypatch.setattr(api, "intersect_crops",
                         lambda crops: port_crops.append(intersect(crops)) or port_crops[-1])
     js = JaxStabilizer(config=JaxConfig(**SMALL))
     js.CHUNK = CHUNK

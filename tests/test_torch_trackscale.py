@@ -166,7 +166,7 @@ def compare_track_slice(monkeypatch, fields, num_frames, h, w, variant=0):
     jcropped, jratio, jdist, jstab = js._stabilize_frames(jnp.asarray(frames), variant, h, w)
     ts = MeshFlowStabilizer(config=tc, device="cpu")
     cropped, ratio, dist, stab = ts._stabilize_frames(torch.from_numpy(frames), variant)
-    assert [name for name, _ in ts.last_timer.stages] == [
+    assert list(ts.last_timer.report()) == [
         "detect", "motion", "solver", "warp+crop", "metrics"
     ]
 
